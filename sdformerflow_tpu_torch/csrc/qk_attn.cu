@@ -15,10 +15,11 @@
 // (sdformerflow_tpu_torch/ops/hopper_attn.py), as they stayed in XLA.
 //
 // What bounds it on H100: the two C x C products per row (4 * C^2 FMAs per
-// row for both halves of q and k; ~10.5 GFLOP per en4 stage) done here on
-// the CUDA cores in f32, not the memory traffic (x is read once, the 0/1
-// output written once). The design keeps every intermediate on chip: one
-// block owns a tile of rows of BOTH time halves (the PSN pairs x_0[r] with
+// row for both halves of q and k) done here on the CUDA cores in f32. At the
+// en4 288x384 sites (M*ns rows, C) that is 2.63 GFLOP at (35640, 96), 2.87
+// at (9720, 192) and (2430, 384), and 3.82 at (810, 768). Not the memory
+// traffic: x is read once, the 0/1 output written once.
+// The design keeps every intermediate on chip: one block owns a tile of rows of BOTH time halves (the PSN pairs x_0[r] with
 // x_1[r]), writes the input spikes to shared memory once, and each thread
 // accumulates kRows rows of q and k at one output channel, so every weight
 // element loaded from L1/L2 feeds 4 * kRows FMAs and every spike read from

@@ -1,10 +1,9 @@
 """Configuration dataclasses, mirrors of ``sdformerflow_tpu/models/common.py``.
 
 Plain frozen dataclasses with the JAX package's field names and defaults for
-every field ``training/config.py:build_configs`` fills, plus ``kernels``.
-The JAX-only switches (``fused_qk_attn`` / ``pairlocal_attn``: the port
-always runs the pair-local attention, ``fold_bn``, ``store_v_seq``) are left
-out.
+every field ``training/config.py:build_configs`` fills. The JAX-only
+switches (``fused_qk_attn`` / ``pairlocal_attn``: the port always runs the
+pair-local attention, ``fold_bn``, ``store_v_seq``) are left out.
 """
 
 from __future__ import annotations
@@ -29,10 +28,6 @@ class SpikingConfig:
     # one raises NotImplementedError
     s2d_embed: bool = False
     s2d_train: bool = False
-    # True: the PSN sites and the QK attention dispatch by device (Hopper
-    # kernel for a CUDA tensor, plain twin for a CPU tensor). False: the
-    # plain twins everywhere, the reference run a kernel is compared with.
-    kernels: bool = True
 
     def replace(self, **kw) -> "SpikingConfig":
         return dataclasses.replace(self, **kw)

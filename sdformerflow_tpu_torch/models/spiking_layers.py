@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.hopper_attn import bn_eval_affine
-from ..ops.hopper_psn import fused_affine_psn, psn_spike
+from ..ops.hopper_psn import fused_affine_psn
 from .common import SpikingConfig
 
 
@@ -41,15 +41,14 @@ class SpikingNeuron(nn.Module):
         bound = math.sqrt(1.0 / T)  # kaiming_uniform(a=sqrt(5)) on [T, T]
         self.weight = nn.Parameter(torch.empty(T, T).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.full((T, 1), -1.0))
-        self.kernels = cfg.kernels
 
     def forward(self, x, affine=None):
         if x.shape[0] != self.weight.shape[0]:
             raise ValueError(f"PSN built for T={self.weight.shape[0]} but "
                              f"input has T={x.shape[0]}")
         scale, shift = affine if affine is not None else (None, None)
-        fire = fused_affine_psn if self.kernels else psn_spike
-        return fire(x, self.weight, self.bias, scale=scale, shift=shift)
+        return fused_affine_psn(x, self.weight, self.bias, scale=scale,
+                                shift=shift)
 
 
 class TorchBatchNorm(nn.Module):

@@ -20,8 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import windows as W
-from ..ops.hopper_attn import (QKAttnParams, fused_qk_attention,
-                               qk_attention_pairlocal)
+from ..ops.hopper_attn import QKAttnParams, fused_qk_attention
 from .common import SpikingConfig
 from .spiking_layers import (SpikingNeuron, SpikingNorm, require_bn,
                              require_eval)
@@ -54,7 +53,6 @@ class SpikingQKWindowAttention3D(nn.Module):
         if cfg.neuron_type.lower() != "psn":
             raise NotImplementedError("only PSN neurons are ported")
         self.dim, self.num_heads = dim, num_heads
-        self.kernels = cfg.kernels
         acfg = cfg.replace(num_steps=window_size[0])
         n_all = window_size[0] * window_size[1] * window_size[2]
         self.proj_sn = SpikingNeuron(acfg)
@@ -84,8 +82,7 @@ class SpikingQKWindowAttention3D(nn.Module):
 
     def forward(self, x):
         require_eval(self)
-        attend = fused_qk_attention if self.kernels else qk_attention_pairlocal
-        return attend(x, self.kernel_params(), self.num_heads)
+        return fused_qk_attention(x, self.kernel_params(), self.num_heads)
 
 
 class SpikingMlp(nn.Module):

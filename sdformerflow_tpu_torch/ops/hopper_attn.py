@@ -117,7 +117,7 @@ def qk_attn_interior_plain(x_windows, p: QKAttnParams, num_heads: int):
     return torch.stack([a0, a1]).to(x_windows.dtype)
 
 
-def _tail(a, p: QKAttnParams, num_heads: int, shape, dtype):
+def qk_attn_tail(a, p: QKAttnParams, num_heads: int, shape, dtype):
     """Pair-regroup + proj linear + BN affine: [2, M, ns, C] -> ``shape``."""
     _, M, ns, C = a.shape
     nh, hd = num_heads, C // num_heads
@@ -137,7 +137,7 @@ def qk_attention_pairlocal(x_windows, p: QKAttnParams, num_heads: int):
     """Plain PyTorch attention forward: [2, M, wh, ww, C] -> same shape
     (pre window_reverse), the JAX ``qk_attention_pairlocal``."""
     a = qk_attn_interior_plain(x_windows, p, num_heads)
-    return _tail(a, p, num_heads, x_windows.shape, x_windows.dtype)
+    return qk_attn_tail(a, p, num_heads, x_windows.shape, x_windows.dtype)
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -205,4 +205,4 @@ def fused_qk_attention(x_windows, p: QKAttnParams, num_heads: int):
     if x_windows.device.type == "cpu":
         return qk_attention_pairlocal(x_windows, p, num_heads)
     a = qk_attn_interior(x_windows, p, num_heads)
-    return _tail(a, p, num_heads, x_windows.shape, x_windows.dtype)
+    return qk_attn_tail(a, p, num_heads, x_windows.shape, x_windows.dtype)

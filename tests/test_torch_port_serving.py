@@ -40,8 +40,7 @@ def test_config_matches_jax(name):
     for field in swin.__dataclass_fields__:
         assert getattr(swin, field) == getattr(j_swin, field), field
     for field in spiking.__dataclass_fields__:
-        if field != "kernels":
-            assert getattr(spiking, field) == getattr(j_spiking, field), field
+        assert getattr(spiking, field) == getattr(j_spiking, field), field
 
 
 def test_flow_server_matches_eval_step_cpu():
