@@ -1,7 +1,8 @@
 """Build the package's kernels from its own sources, at first use.
 
-CUDA C++ sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``
-into shared libraries with a plain C interface and loaded with ``ctypes``.
+CUDA C++ sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``,
+and host C++ sources (the event packer) by ``g++``, into shared libraries
+with a plain C interface, loaded with ``ctypes``.
 Each library is keyed by a hash of its source and the compiler flags, so an
 edit rebuilds it and an unchanged source is reused. Everything is written
 under ``_build/`` inside the package (listed in ``.gitignore``), including
@@ -25,6 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
 def _nvcc() -> str:
@@ -40,16 +42,10 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_cuda_library(source_name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<source_name>`` if its hashed library is missing.
-
-    Returns the library path and the compiler's log (``-Xptxas -v``: the
-    registers, shared memory and spills of each kernel); the log is empty
-    when the library was already built.
-    """
+def _build(source_name: str, compiler: str, flags) -> tuple[Path, str]:
     src = CSRC_DIR / source_name
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():
         return lib, ""
@@ -57,10 +53,11 @@ def build_cuda_library(source_name: str) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                               f"{src}:\n{proc.stderr}")
         os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
     finally:
         if os.path.exists(tmp):
@@ -68,10 +65,35 @@ def build_cuda_library(source_name: str) -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def build_cuda_library(source_name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<source_name>`` with nvcc if its hashed library is
+    missing.
+
+    Returns the library path and the compiler's log (``-Xptxas -v``: the
+    registers, shared memory and spills of each kernel); the log is empty
+    when the library was already built.
+    """
+    return _build(source_name, _nvcc(), NVCC_FLAGS)
+
+
 @functools.cache
 def load_cuda_library(source_name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source_name>``."""
     lib, _ = build_cuda_library(source_name)
+    return ctypes.CDLL(str(lib))
+
+
+def build_host_library(source_name: str) -> tuple[Path, str]:
+    """Compile the host C++ source ``csrc/<source_name>`` with g++ if its
+    hashed library is missing; returns the library path and the compiler's
+    log (empty when the library was already built)."""
+    return _build(source_name, "g++", GXX_FLAGS)
+
+
+@functools.cache
+def load_host_library(source_name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the host library of ``csrc/<source_name>``."""
+    lib, _ = build_host_library(source_name)
     return ctypes.CDLL(str(lib))
 
 

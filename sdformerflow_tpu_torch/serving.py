@@ -1,16 +1,23 @@
 """Persistent-process inference serving, a port of
-``sdformerflow_tpu/serving.py:FlowServer`` for voxel-chunk requests.
+``sdformerflow_tpu/serving.py:FlowServer``.
 
-The unit of work is one event window -> one flow map. Throughput comes from
-keeping the card busy across requests: PyTorch launches CUDA work
-asynchronously, so a dispatch thread encodes, uploads and launches request
-k+1 while a fetch thread waits for request k's result on the host and
-resolves its future - the only thread that waits on the device.
+The unit of work is one event window -> one flow map. A request is either
+a voxel chunk at crop size or a dict of raw events x/y/t/p at sensor
+resolution. Throughput comes from keeping the card busy across requests:
+PyTorch launches CUDA work asynchronously, so a dispatch thread packs,
+uploads and launches request k+1 while a fetch thread waits for request
+k's result on the host and resolves its future - the only thread that
+waits on the device.
 
-Raw-event requests (dicts of x/y/t/p) need the on-device voxelizer (K3,
-``ops/pallas_voxel.py`` in the JAX package), which is not ported yet: they
-raise ``NotImplementedError``. Mesh batching is not ported either: one
-request is one batch-1 forward.
+Raw events are packed on the host into one [1, 5, bucket] float32 buffer
+(x/y/t/p/valid; pinned on the card's host, ``native.pack_window``), copied
+to the device in one non-blocking transfer, voxelized there by K3
+(``ops/hopper_voxel.py``) and center-cropped inside the eval step. K3 is
+order-free, so the events are not sorted on the host. Event counts are
+padded to power-of-two buckets (:func:`next_bucket`).
+
+Not ported: mesh batching (one request is one batch-1 forward), the s2d
+and fused-attention options, and the HTTP wrapper ``scripts/serve.py``.
 """
 
 from __future__ import annotations
@@ -24,9 +31,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import native
 from .models.registry import get_model
 from .training.config import build_configs
 from .training.train_step import make_eval_step
+
+
+def next_bucket(n: int, minimum: int = 4096) -> int:
+    """Smallest power of two >= n (and >= minimum): the padded event-buffer
+    length, so requests fall into ~log2(max events) shapes."""
+    return max(minimum, 1 << max(int(n) - 1, 1).bit_length())
 
 
 class FlowServer:
@@ -55,13 +69,25 @@ class FlowServer:
         model.to(self.device)
 
         is_snn = "Spiking" in name
-        self._step = make_eval_step(
-            model, encoding=config["model"].get("encoding", "voxel"),
-            polarity=config["loader"].get("polarity", True) and is_snn,
-            norm_input=config["model"].get("norm_input"),
-            spike_th=config["data"].get("spike_th"),
-            compute_dtype=torch.bfloat16 if bf16 else None)
+        self._num_bins = config["data"].get("num_frames", 10)
+        self._resolution = tuple(config["loader"].get("resolution",
+                                                      (480, 640)))
+        crop = config["loader"].get("crop")
+        self._crop = tuple(crop) if crop else None
+        kw = dict(encoding=config["model"].get("encoding", "voxel"),
+                  polarity=config["loader"].get("polarity", True) and is_snn,
+                  norm_input=config["model"].get("norm_input"),
+                  spike_th=config["data"].get("spike_th"),
+                  compute_dtype=torch.bfloat16 if bf16 else None)
+        self._step = make_eval_step(model, **kw)
         self.model = self._step.model
+        # the events step runs the same cast model: voxelize at sensor
+        # resolution, center crop, forward
+        self._events_step = make_eval_step(
+            self.model, **kw, crop=self._crop,
+            voxelize=dict(num_bins=self._num_bins,
+                          height=self._resolution[0],
+                          width=self._resolution[1]))
 
         self._requests: "queue_mod.Queue" = queue_mod.Queue(
             maxsize=max_pending)
@@ -82,12 +108,14 @@ class FlowServer:
 
     def submit(self, request) -> Future:
         """Enqueue one window; returns a Future resolving to the flow map
-        [2, H, W] float32. ``request`` is a voxel chunk ([bins, H, W] or
-        [bins, 2, H, W] numpy array at crop size)."""
-        if isinstance(request, dict):
-            raise NotImplementedError(
-                "raw-event requests need the on-device voxelizer, which is "
-                "not ported yet; send a voxel chunk")
+        [2, h, w] float32 at crop size.
+
+        ``request`` is either a voxel chunk ([bins, h, w] or
+        [bins, 2, h, w] numpy array, already at crop size) or a dict with
+        keys x/y/t/p ([N] arrays of raw events at sensor resolution:
+        uint16/uint16/int64/uint8 as DSEC stores them, or any numeric
+        dtype), voxelized and center-cropped on the device.
+        """
         if self._closed.is_set():
             raise RuntimeError("server closed")
         fut: Future = Future()
@@ -97,6 +125,42 @@ class FlowServer:
     def infer(self, request):
         """Synchronous single-request helper."""
         return self.submit(request).result()
+
+    def warmup(self, n_events: Optional[int] = None, *,
+               all_buckets: bool = False):
+        """Serve a zero voxel request, plus one events request in the bucket
+        of ``n_events`` (with ``all_buckets``, in every bucket from the
+        smallest up to it), so that the first requests of real traffic do
+        not pay for kernel builds and allocations."""
+        h, w = self._crop or self._resolution
+        self.infer(np.zeros((self._num_bins, h, w), np.float32))
+        if n_events is None:
+            return
+        top = next_bucket(n_events)
+        buckets = [top]
+        if all_buckets:
+            b = next_bucket(0)
+            while b < top:
+                buckets.insert(-1, b)
+                b *= 2
+        for bucket in buckets:
+            self.infer({"x": np.zeros(bucket, np.float32),
+                        "y": np.zeros(bucket, np.float32),
+                        "t": np.linspace(0, 1, bucket, dtype=np.float32),
+                        "p": np.ones(bucket, np.float32)})
+
+    def pack_events(self, request: dict) -> torch.Tensor:
+        """One raw-events request -> its [1, 5, bucket] float32 host buffer
+        (rows x, y, t, p, valid), pinned when the server runs on the card.
+        ``t`` is taken as it comes (no rebase), as the JAX server packs
+        it."""
+        n = len(request["x"])
+        bucket = next_bucket(n)
+        buf = torch.empty((1, 5, bucket), dtype=torch.float32,
+                          pin_memory=self.device.type == "cuda")
+        native.pack_window(request["x"], request["y"], request["t"],
+                           request["p"], bucket, t0=0.0, out=buf[0].numpy())
+        return buf
 
     def stats(self) -> dict:
         with self._lock:
@@ -133,8 +197,7 @@ class FlowServer:
             if not fut.set_running_or_notify_cancel():
                 continue
             try:
-                chunk = torch.as_tensor(np.asarray(request, np.float32))
-                flows = self._step(chunk[None].to(self.device))
+                flows = self._launch(request)
             except Exception as e:  # noqa: BLE001 - delivered via future
                 fut.set_exception(e)
                 continue
@@ -147,6 +210,17 @@ class FlowServer:
                 break
             if item is not None:
                 item[0].set_exception(RuntimeError("server closed"))
+
+    def _launch(self, request):
+        """Upload one request and launch its forward; returns the flows on
+        the device (launched, not waited for)."""
+        if isinstance(request, dict):
+            dev = self.pack_events(request).to(self.device, non_blocking=True)
+            return self._events_step({
+                "x": dev[:, 0], "y": dev[:, 1], "t": dev[:, 2],
+                "p": dev[:, 3], "valid": dev[:, 4] != 0})
+        chunk = torch.as_tensor(np.asarray(request, np.float32))
+        return self._step(chunk[None].to(self.device))
 
     def _fetch_loop(self):
         while True:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from sdformerflow_tpu_torch.ops import hopper_attn, hopper_psn
+from sdformerflow_tpu_torch.ops import hopper_voxel, voxel
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +79,64 @@ def test_k2_matches_plain_bitwise(dev, dtype, affine):
         assert torch.equal(got, hopper_psn.psn_spike(x, w, b, **kw))
     with pytest.raises(NotImplementedError):
         hopper_psn.fused_affine_psn(x, w.clone().requires_grad_(), b, **kw)
+
+
+K3_ENTRIES = {
+    "signed": (hopper_voxel.voxel_grid_signed_k3, voxel.voxel_grid_signed,
+               "num_bins", {}),
+    "polarities": (hopper_voxel.voxel_grid_polarities_k3,
+                   voxel.voxel_grid_polarities, "num_bins", {}),
+    "v2": (hopper_voxel.events_to_voxel_grid_v2_k3,
+           voxel.events_to_voxel_grid_v2, "num_bins", {"normalize": False}),
+    "frames": (hopper_voxel.events_to_frames_k3, voxel.events_to_frames,
+               "num_frames", {}),
+}
+
+
+def _dyadic_events(n, h, w, bins, gen):
+    """x/y on a 1/4 grid, one unit beyond every edge; t on a 1/4 grid in
+    [0, bins - 1], so that with t_range (0, bins - 1) every weight and every
+    sum is exact; a padded invalid tail."""
+    x = _grid((n,), 0.25, -1.0, w + 1.0, gen)
+    y = _grid((n,), 0.25, -1.0, h + 1.0, gen)
+    t = _grid((n,), 0.25, 0.0, bins - 1.0, gen)
+    p = torch.randint(0, 2, (n,), generator=gen).float()
+    valid = torch.arange(n) < n - n // 8
+    return x, y, t, p, valid
+
+
+@pytest.mark.parametrize("kind", sorted(K3_ENTRIES))
+def test_k3_matches_plain_bitwise(dev, kind):
+    entry, plain, bins_kw, extra = K3_ENTRIES[kind]
+    gen = torch.Generator().manual_seed(11)
+    h, w, bins = 48, 64, 10
+    x, y, t, p, valid = (a.to(dev) for a in _dyadic_events(200_000, h, w,
+                                                           bins, gen))
+    kw = {bins_kw: bins, "height": h, "width": w, "valid": valid,
+          "t_range": (0.0, bins - 1.0), **extra}
+    before = hopper_voxel.voxel_k3.launches
+    got = entry(x, y, t, p, **kw)
+    assert hopper_voxel.voxel_k3.launches == before + 1
+    want = plain(x, y, t, p, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert want.abs().sum() > 0
+    assert torch.equal(got, want)
+
+
+def test_k3_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator().manual_seed(12)
+    x, y, t, p, valid = (a.to(dev) for a in _dyadic_events(1000, 8, 8, 4,
+                                                           gen))
+    kw = dict(num_bins=4, height=8, width=8, valid=valid)
+    with pytest.raises(TypeError):
+        hopper_voxel.voxel_grid_signed_k3(x.double(), y, t, p, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        hopper_voxel.voxel_grid_signed_k3(x[::2], y[::2], t[::2], p[::2],
+                                          num_bins=4, height=8, width=8)
+    with pytest.raises(ValueError):
+        hopper_voxel.voxel_grid_signed_k3(x, y, t, p, num_bins=4, height=8,
+                                          width=8, valid=valid.float())
+    with pytest.raises(ValueError):
+        hopper_voxel.voxel_grid_signed_k3(x, y[:-1], t, p, num_bins=4,
+                                          height=8, width=8)

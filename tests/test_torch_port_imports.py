@@ -1,7 +1,8 @@
 """The port imports torch and never jax: every module of
 ``sdformerflow_tpu_torch`` imports in a fresh interpreter with no jax, flax
 or JAX-package module in ``sys.modules``, and importing starts no kernel
-build (triton and nvcc are needed only when a kernel launches)."""
+build (triton, nvcc and g++ are needed only when a kernel or the event
+packer is first called)."""
 
 import subprocess
 import sys
@@ -17,12 +18,20 @@ PROBE = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                         "sdformerflow_tpu"))
-    print(len(names), bad)
+    from sdformerflow_tpu_torch import kernel_build, native
+    from sdformerflow_tpu_torch.ops import hopper_attn, hopper_voxel
+    built = sum(f.cache_info().currsize for f in (
+        kernel_build.load_cuda_library, kernel_build.load_host_library,
+        native._lib, hopper_attn._kernel_fn, hopper_voxel._kernel_fn))
+    print(len(names), built, bad, " ".join(names))
 """)
 
 
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 15, out
-    assert out[1:] == ["[]"], out
+    assert int(out[0]) >= 19, out
+    assert out[1:3] == ["0", "[]"], out    # nothing built, nothing of jax
+    for name in ("native", "ops.voxel", "ops.hopper_voxel", "serving",
+                 "training.train_step"):
+        assert f"sdformerflow_tpu_torch.{name}" in out[3:], name

@@ -1,8 +1,9 @@
 """The port's serving path on the CPU: config -> FlowServer -> flows.
 
 The server must answer like a direct ``make_eval_step`` call on the same
-weights (same model, same arithmetic: exact equality), reject raw-event
-requests until the on-device voxelizer is ported, and report latency.
+weights (same model, same arithmetic: exact equality), answer a raw-events
+request exactly as the voxel request of its own plain-twin grid after the
+same center crop, bucket event counts, and report latency.
 """
 
 import os
@@ -15,9 +16,11 @@ from sdformerflow_tpu.training.config import build_configs as j_build_configs
 from sdformerflow_tpu.training.config import load_config as j_load_config
 from sdformerflow_tpu_torch.losses import aee_metrics
 from sdformerflow_tpu_torch.models.registry import get_model, randomize_
-from sdformerflow_tpu_torch.serving import FlowServer
+from sdformerflow_tpu_torch.ops.voxel import voxel_grid_signed
+from sdformerflow_tpu_torch.serving import FlowServer, next_bucket
 from sdformerflow_tpu_torch.training.config import build_configs, load_config
-from sdformerflow_tpu_torch.training.train_step import make_eval_step
+from sdformerflow_tpu_torch.training.train_step import (center_crop,
+                                                        make_eval_step)
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 
@@ -57,9 +60,9 @@ def test_flow_server_matches_eval_step_cpu():
     with FlowServer(config, state, device="cpu", bf16=False) as server:
         futures = [server.submit(r) for r in requests]
         flows = [f.result(timeout=120) for f in futures]
-        with pytest.raises(NotImplementedError):
-            server.submit({"x": np.zeros(4), "y": np.zeros(4),
-                           "t": np.zeros(4), "p": np.zeros(4)})
+        with pytest.raises(ValueError, match="one length"):
+            server.infer({"x": np.zeros(4), "y": np.zeros(3),
+                          "t": np.zeros(4), "p": np.zeros(4)})
         stats = server.stats()
     assert stats["served"] == 3 and stats["latency_ms_p50"] > 0
     for r, flow in zip(requests, flows):
@@ -90,3 +93,75 @@ def test_bf16_eval_step_keeps_bn_stats_f32():
     assert flows[-1].dtype == torch.float32
     assert flows[-1].shape == (1, 2, 96, 128)
     assert torch.isfinite(flows[-1]).all()
+
+
+SENSOR = (104, 136)   # raw events arrive at this size, crop 96x128
+
+
+@pytest.fixture(scope="module")
+def events_server():
+    config = _tiny_config()
+    config["loader"]["resolution"] = list(SENSOR)
+    model_cfg, swin, spiking = build_configs(config)
+    model = get_model(config["model"]["name"], model_cfg, swin, spiking)
+    randomize_(model, torch.Generator().manual_seed(3))
+    with FlowServer(config, model.state_dict(), device="cpu",
+                    bf16=False) as server:
+        yield server
+
+
+def _raw_events(n, seed):
+    rng = np.random.default_rng(seed)
+    h, w = SENSOR
+    return {"x": rng.uniform(-1, w, n).astype(np.float32),
+            "y": rng.uniform(-1, h, n).astype(np.float32),
+            "t": np.sort(rng.uniform(0, 0.1, n)).astype(np.float32),
+            "p": rng.integers(0, 2, n).astype(np.uint8)}
+
+
+def test_next_bucket():
+    assert next_bucket(1) == 4096
+    assert next_bucket(4096) == 4096
+    assert next_bucket(4097) == 8192
+    assert next_bucket(100_000) == 131072
+    assert next_bucket((1 << 20) + 1) == 1 << 21
+
+
+def test_events_request_matches_its_voxel_request(events_server):
+    """An events request equals the voxel request of its own grid (the
+    plain twin, t_range from the events' span) after the same center
+    crop, bit for bit."""
+    ev = _raw_events(3000, seed=4)
+    t = torch.from_numpy(ev["t"])
+    grid = voxel_grid_signed(
+        torch.from_numpy(ev["x"]), torch.from_numpy(ev["y"]), t,
+        torch.from_numpy(ev["p"]), num_bins=10, height=SENSOR[0],
+        width=SENSOR[1], t_range=(t.min(), t.max()))
+    assert grid.abs().sum() > 0
+    chunk = center_crop(grid, (96, 128)).numpy()
+    got = events_server.infer(ev)
+    assert got.shape == (2, 96, 128) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, events_server.infer(chunk))
+
+
+def test_events_requests_in_one_bucket(events_server):
+    flows = [events_server.submit(_raw_events(n, seed=n)) for n in
+             (1000, 3000)]   # both in the 4096 bucket
+    a, b = (f.result(timeout=120) for f in flows)
+    for flow in (a, b):
+        assert flow.shape == (2, 96, 128) and np.isfinite(flow).all()
+    assert not np.array_equal(a, b)
+
+
+def test_warmup_bucket_coverage(events_server):
+    """warmup serves one voxel request plus one events request per bucket:
+    the target bucket only, or every bucket from the smallest up."""
+    before = events_server.stats()["served"]
+    events_server.warmup(5000)           # voxel + the 8192 bucket
+    assert events_server.stats()["served"] == before + 2
+    before = events_server.stats()["served"]
+    events_server.warmup(5000, all_buckets=True)  # voxel + 4096 + 8192
+    assert events_server.stats()["served"] == before + 3
+    before = events_server.stats()["served"]
+    events_server.warmup()               # voxel only
+    assert events_server.stats()["served"] == before + 1
