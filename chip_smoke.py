@@ -7,9 +7,9 @@ Run from the root of the repository, with no arguments:
 
 Phases (any failure exits non-zero):
 
-1. build every kernel from the sources in the checkout - K1, K2b and K3 by
-   nvcc and the event packer by g++, in parallel, K2 by Triton meanwhile -
-   and print the build seconds and ptxas' register and memory report;
+1. build every kernel from the sources in the checkout - K1, K2b, K3 and K4
+   by nvcc and the event packer by g++, in parallel, K2 by Triton meanwhile
+   - and print the build seconds and ptxas' register and memory report;
 2. K1 vs its plain twin at the attention shapes the en4 forward gives it,
    float32 and bfloat16: bitwise on dyadic inputs, flipped-spike share on
    Gaussian and on real captured inputs; timings beside the bound;
@@ -49,7 +49,21 @@ Phases (any failure exits non-zero):
    restores to identical tensors; the card's busy time per step
    (profiler) and the peak memory; 2 steps of the raw-events train step
    (480x640 events, K3, crop); and a 96x128 A/B, one train step with the
-   kernels and one with the plain twins from the same state and batch.
+   kernels and one with the plain twins from the same state and batch;
+10. the fused-embed eval path and the s2d embed: K4 (the channels-second
+   conv + BN affine) at the 8 launch shapes of a full-width fused embed,
+   float32 and bfloat16, bitwise on dyadic inputs, within 1e-5 (f32) or one
+   bfloat16 rounding of the twin's largest on Gaussian ones, timed beside
+   its twin, the bound and cuDNN; K4a at the embed's 6 PSN sites and K2c at
+   [10, 27648, 96] and [10, 6912, 96] (same checks as K2); then
+   ``make_eval_step(fused_embed=True, num_steps=10)`` on the en4 bf16
+   model at 288x384: K4 8, K4a 6 and K1 12 launches a request, K2 6 fewer
+   than the module path's; latency over 64 requests and device busy, fused
+   and module path interleaved; ``FlowServer(s2d=True)`` beside
+   ``s2d=False`` the same way; and float32 A/Bs (96x128 and full width for
+   the fused embed, 96x128 for s2d) holding each K4 and K4a launch against
+   its twin and every spike site of the two paths against each other: with
+   no spike differing, the flows must be equal.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -113,14 +127,14 @@ def dyadic(shape, step, lo, hi, gen, device, dtype):
     """Values on a power-of-two grid: every float32 sum of them is exact."""
     import torch
     n = int(round((hi - lo) / step)) + 1
-    v = torch.randint(0, n, shape, generator=gen) * step + lo
-    return v.to(device, dtype)
+    v = torch.randint(0, n, shape, generator=gen, device=gen.device)
+    return (v * step + lo).to(device, dtype)
 
 
 # ------------------------------------------------------------ phase 1
 
 def phase_build(torch, dev):
-    """Build every kernel of the checkout: the two CUDA sources (nvcc) and
+    """Build every kernel of the checkout: the four CUDA sources (nvcc) and
     the host event packer (g++) in parallel, Triton's K2 in this thread
     meanwhile. Returns the wall seconds of the whole build."""
     from concurrent.futures import ThreadPoolExecutor
@@ -133,7 +147,7 @@ def phase_build(torch, dev):
         return time.perf_counter() - t0, compiler_log
 
     t_start = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {
             "K1 qk_attn.cu (nvcc)": pool.submit(
                 timed, kernel_build.build_cuda_library, "qk_attn.cu"),
@@ -141,6 +155,8 @@ def phase_build(torch, dev):
                 timed, kernel_build.build_cuda_library, "psn_bwd.cu"),
             "K3 voxel.cu (nvcc)": pool.submit(
                 timed, kernel_build.build_cuda_library, "voxel.cu"),
+            "K4 conv_cs.cu (nvcc)": pool.submit(
+                timed, kernel_build.build_cuda_library, "conv_cs.cu"),
             "event_ops.cpp (g++)": pool.submit(
                 timed, kernel_build.build_host_library, "event_ops.cpp"),
         }
@@ -163,6 +179,7 @@ def phase_build(torch, dev):
     kernel_build.load_cuda_library("qk_attn.cu")
     kernel_build.load_cuda_library("psn_bwd.cu")
     kernel_build.load_cuda_library("voxel.cu")
+    kernel_build.load_cuda_library("conv_cs.cu")
     native._lib()
     wall = time.perf_counter() - t_start
     log(f"[1] build: K2 triton {t_triton:.2f} s; all kernels {wall:.2f} s "
@@ -1268,6 +1285,553 @@ def phase_train_ab(torch, dev, config):
                 grad_norm=total)
 
 
+# ----------------------------------------------------------- phase 10
+# the fused-embed eval path (K4 + K4a through make_eval_step(fused_embed=
+# True)), K2c, and the s2d embed (FlowServer(s2d=True))
+
+N_EMBED_REQUESTS = 64   # interleaved latency requests per path
+N_EMBED_COUNTED = 16    # requests of the counted run of each path
+# K4 vs its twin on Gaussian inputs: the largest |d| over the twin's largest
+# magnitude. float32: the sums run in another order (1e-5); bfloat16: one
+# rounding of the largest value (2^-7)
+K4_TOL = 1e-5
+K4_TOL_BF16 = 2.0 ** -7
+K2C_SHAPES = ((10, 27648, 96), (10, 6912, 96))
+
+
+class SiteCall:
+    """Stands in for one of ``ops/hopper_embed.py``'s kernel entries
+    (``conv3x3_affine_cs`` or ``psn_spike_cs``) during a checked run: calls
+    the real entry, whose own count then lands on this object's
+    ``launches``, and hands the call to ``on_call(args, kwargs, out)``."""
+
+    def __init__(self, real, on_call):
+        self.real, self.on_call, self.launches = real, on_call, 0
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.on_call(args, kwargs, out)
+        return out
+
+
+@contextlib.contextmanager
+def embed_sites(on_conv, on_spike):
+    """Route the fused embed's K4 and K4a calls through :class:`SiteCall`."""
+    from sdformerflow_tpu_torch.ops import hopper_embed as E
+    saved = E.conv3x3_affine_cs, E.psn_spike_cs
+    E.conv3x3_affine_cs = SiteCall(saved[0], on_conv)
+    E.psn_spike_cs = SiteCall(saved[1], on_spike)
+    try:
+        yield
+    finally:
+        E.conv3x3_affine_cs, E.psn_spike_cs = saved
+
+
+def capture_embed(torch, step, chunk):
+    """The K4 calls (x, weight, scale, shift, stride) and K4a calls (x, W,
+    b) of one fused-embed request, inputs cloned."""
+    convs, spikes = [], []
+
+    def on_conv(args, kw, out):
+        x, w, sc, sh = (tuple(args) + (None, None))[:4]
+        sc, sh = kw.get("scale", sc), kw.get("shift", sh)
+        convs.append((x.clone(), w, sc, sh, kw.get("stride", 1)))
+
+    def on_spike(args, kw, out):
+        spikes.append((args[0].clone(), args[1], args[2]))
+
+    with torch.inference_mode(), embed_sites(on_conv, on_spike):
+        step(chunk)
+    return convs, spikes
+
+
+def conv_bound(x, w, out, stride):
+    """(ms, basis) of one K4 launch: the inputs its outputs read (all of x,
+    but only the kept pixels x[..., ::stride, ::stride] of a strided 1x1),
+    w and a/b read, out written once; 2 Cin k^2 operations per output on the
+    bf16 tensor cores (the card's peak for the main path's type)."""
+    cout, cin, k, _ = w.shape
+    x_read = x[..., ::stride, ::stride] if k == 1 else x
+    flops = 2 * out.numel() * cin * k * k
+    return bound(nbytes(x_read, w, out) + 8 * cout, flops, BF16_TC_FLOP_S)
+
+
+def phase_k4(torch, dev, convs):
+    """K4 vs its twin at each launch shape of the fused embed, float32 and
+    bfloat16: bitwise on dyadic inputs, within K4_TOL / K4_TOL_BF16 on
+    Gaussian ones; kernel, twin and cuDNN (one F.conv2d with the affine
+    folded into weight and bias, same dtype) timed on the main path's input
+    beside the bound."""
+    import torch.nn.functional as F
+    from sdformerflow_tpu_torch.ops import hopper_embed as E
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, f32_ms=0.0,
+               max_abs_err=0.0, max_rel_err=0.0, bf16_max_rel_err=0.0)
+    bound_by = {"bytes": 0.0, "operations": 0.0}
+    for x_real, w_real, sc_real, sh_real, stride in convs:
+        N, cin, H, W = x_real.shape
+        cout, _, k, _ = w_real.shape
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = dyadic((N, cin, H, W), 0.25, -2.0, 2.0, gen, dev, dt)
+            w = dyadic((cout, cin, k, k), 0.125, -1.0, 1.0, gen, dev, dt)
+            a = dyadic((cout,), 0.25, 0.25, 2.0, gen, dev, torch.float32)
+            b = dyadic((cout,), 0.25, -1.0, 1.0, gen, dev, torch.float32)
+            got = E.conv3x3_affine_cs(x, w, a, b, stride=stride)
+            # cuDNN may pick Winograd, whose transforms round: the exact
+            # reference is PyTorch's own im2col + GEMM convolution
+            with torch.backends.cudnn.flags(enabled=False):
+                want = E.conv3x3_affine_cs_plain(x, w, a, b, stride=stride)
+            err = (got.float() - want.float()).abs().max().item()
+            check(err == 0.0, f"K4 {list(x.shape)} k{k} s{stride} {dt} "
+                  f"dyadic: max|d| {err}")
+            check(want.abs().max().item() > 0, "K4 dyadic: all-zero output")
+            xg = torch.randn(x.shape, generator=gen, device=dev).to(dt)
+            wg = (torch.randn(w.shape, generator=gen, device=dev)
+                  * 0.2).to(dt)
+            ag = torch.rand(cout, generator=gen, device=dev) + 0.5
+            bg = torch.randn(cout, generator=gen, device=dev)
+            ad, rd = rel_err(E.conv3x3_affine_cs(xg, wg, ag, bg,
+                                                 stride=stride),
+                             E.conv3x3_affine_cs_plain(xg, wg, ag, bg,
+                                                       stride=stride))
+            tol = K4_TOL if dt == torch.float32 else K4_TOL_BF16
+            check(rd <= tol, f"K4 {list(x.shape)} k{k} s{stride} {dt} "
+                  f"gaussian: max|d| {rd:.3g} of the twin's largest")
+            errs[dt] = rd
+            if dt == torch.float32:
+                out["max_rel_err"] = max(out["max_rel_err"], rd)
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["f32_ms"] += cuda_time_ms(
+                    lambda: E.conv3x3_affine_cs(xg, wg, ag, bg,
+                                                stride=stride), iters=10)
+            else:
+                out["bf16_max_rel_err"] = max(out["bf16_max_rel_err"], rd)
+        # the main path's own launch (bf16), its twin and cuDNN
+        run = lambda: E.conv3x3_affine_cs(x_real, w_real, sc_real,  # noqa: E731
+                                          sh_real, stride=stride)
+        y = run()
+        t_k = cuda_time_ms(run, iters=10)
+        t_p = cuda_time_ms(lambda: E.conv3x3_affine_cs_plain(
+            x_real, w_real, sc_real, sh_real, stride=stride), iters=10)
+        a_f = (torch.ones(cout, device=dev) if sc_real is None
+               else sc_real.float())
+        w_f = (w_real.float() * a_f.reshape(-1, 1, 1, 1)).to(x_real.dtype)
+        b_f = None if sh_real is None else sh_real.to(x_real.dtype)
+        lib = F.conv2d(x_real, w_f, b_f, stride=stride, padding=k // 2)
+        check(lib.shape == y.shape, f"cuDNN shape {lib.shape} vs {y.shape}")
+        t_l = cuda_time_ms(lambda: F.conv2d(x_real, w_f, b_f, stride=stride,
+                                            padding=k // 2), iters=10)
+        b_ms, by = conv_bound(x_real, w_real, y, stride)
+        bound_by[by] += b_ms
+        out["ms"] += t_k
+        out["plain_ms"] += t_p
+        out["library_ms"] += t_l
+        log(f"[10] K4 {cin}->{cout} k{k} s{stride} at {H}x{W} (N={N}): "
+            f"dyadic bitwise f32/bf16, gaussian max|d| f32 "
+            f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g} of "
+            f"the twin's largest; bf16 kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, cuDNN {t_l:.4f} ms; "
+            f"{2 * y.numel() * cin * k * k / 1e9:.2f} GFLOP, bound "
+            f"{b_ms:.4f} ms ({by}), kernel at {100 * b_ms / t_k:.1f}% of it")
+    out.update(bound_ms=sum(bound_by.values()),
+               bound_by=max(bound_by, key=bound_by.get), n_shapes=len(convs))
+    log(f"[10] K4 per request ({len(convs)} launches, bf16): kernel "
+        f"{out['ms']:.3f} ms (f32 {out['f32_ms']:.3f}), twin "
+        f"{out['plain_ms']:.3f} ms, cuDNN {out['library_ms']:.3f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def psn_check(torch, dev, gen, shape, fn, plain, label, real=None):
+    """A PSN entry with no affine (K4a, K2c) vs its twin at ``shape``:
+    bitwise on dyadic inputs in float32 and bfloat16, the flipped share on
+    Gaussian ones; kernel and twin timed on ``real`` (or a Gaussian bf16
+    input) beside the bound. Returns (dyadic max|d|, worst flip share, ms,
+    plain ms, bound ms, basis)."""
+    T = shape[0]
+    flips, max_err = [], 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        x = dyadic(shape, 0.25, -2.0, 2.0, gen, dev, dt)
+        w = dyadic((T, T), 0.125, -1.0, 1.0, gen, dev, torch.float32)
+        b = dyadic((T, 1), 0.25, -1.0, 1.0, gen, dev, torch.float32)
+        got = fn(x, w, b)
+        err = (got.float() - plain(x, w, b).float()).abs().max().item()
+        max_err = max(max_err, err)
+        check(got.dtype == dt and err == 0.0,
+              f"{label} {list(shape)} {dt} dyadic: max|d| {err} from the "
+              f"twin")
+        check(0.0 < got.float().mean().item() < 1.0,
+              f"{label} dyadic: degenerate output")
+        xg = torch.randn(shape, generator=gen, device=dev).to(dt)
+        wg = torch.randn(T, T, generator=gen, device=dev) * 0.4
+        bg = torch.randn(T, 1, generator=gen, device=dev) * 0.4
+        flip = (fn(xg, wg, bg) != plain(xg, wg, bg)).float().mean().item()
+        check(flip <= MAX_FLIP_SHARE, f"{label} gaussian flips {flip}")
+        flips.append(flip)
+    x_t, w_t, b_t = real if real is not None else (
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16), wg,
+        bg)
+    t_k = cuda_time_ms(lambda: fn(x_t, w_t, b_t))
+    t_p = cuda_time_ms(lambda: plain(x_t, w_t, b_t))
+    n_col = x_t.numel() // T
+    b_ms, by = bound(2 * nbytes(x_t) + (T * T + T) * 4, 2 * T * T * n_col,
+                     F32_FLOP_S)
+    log(f"[10] {label} {list(shape)}: dyadic bitwise f32/bf16, gaussian "
+        f"flipped share {flips}; {str(x_t.dtype)[6:]} kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms; bound {b_ms:.4f} ms ({by}), kernel at "
+        f"{100 * b_ms / t_k:.1f}% of it")
+    return max_err, max(flips), t_k, t_p, b_ms, by
+
+
+def phase_k4a_k2c(torch, dev, spikes):
+    """K4a at each PSN site of the fused embed and K2c at K2C_SHAPES."""
+    from sdformerflow_tpu_torch.ops import hopper_embed as E
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    gen = torch.Generator(dev).manual_seed(SEED + 31)
+    res = {}
+    for label, fn, plain, cases in (
+            ("K4a", E.psn_spike_cs, E.psn_spike_cs_plain,
+             [(tuple(x.shape), (x, w, b)) for x, w, b in spikes]),
+            ("K2c", P.psn_spike_tm, P.psn_spike_tm_plain,
+             [(s, None) for s in K2C_SHAPES])):
+        r = dict(flip_share=0.0, ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+        bound_by = {"bytes": 0.0, "operations": 0.0}
+        for shape, real in cases:
+            err, flip, t_k, t_p, b_ms, by = psn_check(torch, dev, gen, shape,
+                                                      fn, plain, label, real)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["flip_share"] = max(r["flip_share"], flip)
+            r["ms"] += t_k
+            r["plain_ms"] += t_p
+            bound_by[by] += b_ms
+        r.update(bound_ms=sum(bound_by.values()),
+                 bound_by=max(bound_by, key=bound_by.get))
+        res[label] = r
+    return res
+
+
+def request_loop(torch, steps, chunks):
+    """Requests one at a time through each of ``steps`` (name -> eval
+    step), interleaved request by request; host ms from the call to the
+    finest flow on the host. Returns name -> (latencies, flows)."""
+    out = {name: ([], []) for name in steps}
+    for chunk in chunks:
+        for name, step in steps.items():
+            t0 = time.perf_counter()
+            flow = step(chunk)[-1][0].cpu().numpy()
+            out[name][0].append((time.perf_counter() - t0) * 1e3)
+            out[name][1].append(flow)
+    return out
+
+
+def spike_recorders(records):
+    """Site functions (``site_functions``) and a fused-embed K4a hook
+    (``embed_sites``) that launch the kernels and append each spike site's
+    0/1 output, channels-last, to the list ``records`` in the order the
+    forward reaches them: (name, spikes), name "psn" or "K1"."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops.hopper_psn import fused_affine_psn
+
+    def psn(x, w, b, *, scale=None, shift=None, **_):
+        y = fused_affine_psn(x, w, b, scale=scale, shift=shift)
+        records.append(("psn", y.bool()))
+        return y
+
+    def attend(x, p, nh):
+        a = A.qk_attn_interior(x, p, nh)
+        records.append(("K1", a.bool()))
+        return A.qk_attn_tail(a, p, nh, x.shape, x.dtype)
+
+    def on_spike(args, kw, out):      # K4a: [T, B, C, H, W]
+        records.append(("psn", out.permute(0, 1, 3, 4, 2).bool()))
+    return psn, attend, on_spike
+
+
+def path_flips(a, b, head_s2d=False):
+    """Two recorded forwards compared site by site, in order (the first
+    site of ``a`` taken to block space if ``head_s2d``): (spikes differing
+    in all, spikes in all, index of the first site that differs or None,
+    the share of that site's spikes that differ). Up to the first differing
+    site the two forwards differ by rounding alone, so a right re-expression
+    flips only a rounding-sized share there; after it the forward is
+    chaotic (PERF.md: one flipped spike moves a full-width flow by AEE ~5).
+    Raises if the two runs reach different sites."""
+    from sdformerflow_tpu_torch.ops.s2d import space_to_depth
+    check(len(a) == len(b), f"{len(a)} vs {len(b)} spike sites")
+    n_flip, n, first, first_share = 0, 0, None, 0.0
+    for i, ((ka, u), (kb, v)) in enumerate(zip(a, b)):
+        if head_s2d and i == 0:
+            u = space_to_depth(u)
+        check(ka == kb and u.shape == v.shape, f"site {i}: {ka} "
+              f"{tuple(u.shape)} vs {kb} {tuple(v.shape)}")
+        d = int((u != v).sum())
+        if d and first is None:
+            first, first_share = i, d / u.numel()
+        n_flip += d
+        n += u.numel()
+    return n_flip, n, first, first_share
+
+
+def f32_embed_ab(torch, label, model, chunk):
+    """Float32 on the card (TF32 off): the fused-embed step against the
+    module step on one chunk. Each K4 launch is held against its twin
+    (largest |d| within K4_TOL of the twin's largest) and each K4a launch
+    against its twin (flips); every spike site of the two runs is compared;
+    with no spike differing between the runs, the flows must be equal."""
+    from sdformerflow_tpu_torch.losses import aee_metrics
+    from sdformerflow_tpu_torch.ops import hopper_embed as E
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    T = model.sttmultires_unet.encoders.patch_embed.num_steps
+    steps = {"module": make_eval_step(model),
+             "fused": make_eval_step(model, fused_embed=True, num_steps=T)}
+    recs, flows = {}, {}
+    k4 = {"err": 0.0, "n": 0}
+    k4a = [0, 0]
+
+    def on_conv(args, kw, out):
+        x, w, sc, sh = (tuple(args) + (None, None))[:4]
+        sc, sh = kw.get("scale", sc), kw.get("shift", sh)
+        want = E.conv3x3_affine_cs_plain(x, w, sc, sh,
+                                         stride=kw.get("stride", 1))
+        k4["err"] = max(k4["err"], rel_err(out, want)[1])
+        k4["n"] += 1
+
+    for name, step in steps.items():
+        recs[name] = []
+        psn, attend, on_spike = spike_recorders(recs[name])
+
+        def on_spike_checked(args, kw, out, on_spike=on_spike):
+            on_spike(args, kw, out)
+            want = E.psn_spike_cs_plain(*args, **kw)
+            k4a[0] += int((out != want).sum())
+            k4a[1] += out.numel()
+
+        with site_functions(psn, attend), \
+                embed_sites(on_conv, on_spike_checked):
+            flows[name] = step(chunk)[-1].double().cpu()
+    check(k4["n"] == 8 and k4a[1] > 0, f"{label}: {k4['n']} K4 launches")
+    check(k4["err"] <= K4_TOL, f"{label}: K4 vs its twin {k4['err']:.3g}")
+    check(k4a[0] <= MAX_FLIP_SHARE * k4a[1],
+          f"{label}: K4a flipped {k4a[0]} of {k4a[1]}")
+    n_flip, n, first, share = path_flips(recs["module"], recs["fused"])
+    check(share <= MAX_FLIP_SHARE, f"{label}: at spike site {first}, the "
+          f"first where the fused and the module path differ, {share:.3g} "
+          f"of the spikes differ")
+    if n_flip == 0:
+        check(torch.equal(flows["fused"], flows["module"]),
+              f"{label}: no spike differs, yet the flows do")
+    aee = aee_metrics(flows["fused"], flows["module"],
+                      torch.ones_like(flows["module"][:, :1]))["AEE"].item()
+    log(f"[10] {label} f32 fused embed vs module embed: K4 launches within "
+        f"{k4['err']:.3g} of their twins' largest, K4a {k4a[0]} of {k4a[1]} "
+        f"spikes flipped vs its twin; spikes differing between the paths "
+        f"{n_flip} of {n} (first at site {first} of {len(recs['fused'])}, "
+        f"{share:.3g} of its spikes); flows "
+        f"{'identical' if n_flip == 0 else f'AEE {aee:.6g} apart'}")
+    return dict(k4_rel_err=k4["err"], k4a_flipped=k4a[0],
+                path_flipped=n_flip, spikes=n, first_site=first,
+                first_site_share=share, aee=aee)
+
+
+def small_config(config):
+    """The en4 config cut to the 96x128 geometry of phase 7 (base 16,
+    depths (2, 2, 2, 2), heads (2, 2, 4, 4), window (2, 3, 3))."""
+    import copy
+    small = copy.deepcopy(config)
+    small["model"]["base_num_channels"] = 16
+    small["swin_transformer"].update(swin_depths=[2, 2, 2, 2],
+                                     swin_num_heads=[2, 2, 4, 4],
+                                     window_size=[2, 3, 3])
+    small["loader"]["crop"] = [96, 128]
+    return small
+
+
+def small_en4(torch, config):
+    """(config, model config, SwinConfig, SpikingConfig, state_dict) of
+    :func:`small_config`, weights seeded."""
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.training.config import build_configs
+    small = small_config(config)
+    mcfg, swin, cfg = build_configs(small)
+    state = randomize_(get_model(small["model"]["name"], mcfg, swin, cfg),
+                       torch.Generator().manual_seed(SEED + 5)).state_dict()
+    return small, mcfg, swin, cfg, state
+
+
+def f32_s2d_ab(torch, dev, label, config, state_dict, request):
+    """Float32 on the card: ``FlowServer(s2d=True)`` against
+    ``FlowServer(s2d=False)`` on one request, every spike site of the two
+    forwards compared (the head's in block space); with none differing,
+    the flows must be equal."""
+    from sdformerflow_tpu_torch.serving import FlowServer
+    recs, flows = {}, {}
+    for name, s2d in (("base", False), ("s2d", True)):
+        recs[name] = []
+        psn, attend, _ = spike_recorders(recs[name])
+        with FlowServer(config, state_dict, device=dev, bf16=False,
+                        s2d=s2d) as server, site_functions(psn, attend):
+            flows[name] = server.infer(request)
+    n_flip, n, first, share = path_flips(recs["base"], recs["s2d"],
+                                         head_s2d=True)
+    check(share <= MAX_FLIP_SHARE, f"{label}: at spike site {first}, the "
+          f"first where the s2d and the base server differ, {share:.3g} of "
+          f"the spikes differ")
+    if n_flip == 0:
+        check(np.array_equal(flows["s2d"], flows["base"]),
+              f"{label}: no spike differs, yet the s2d flows do")
+    log(f"[10] {label} f32 FlowServer(s2d=True) vs s2d=False: spikes "
+        f"differing {n_flip} of {n} (first at site {first}, {share:.3g} of "
+        f"its spikes); flows {'identical' if n_flip == 0 else 'differ'}")
+    return dict(path_flipped=n_flip, spikes=n, first_site=first,
+                first_site_share=share)
+
+
+def phase_embed(torch, dev, config, state_dict, card):
+    """The fused-embed eval step and FlowServer(s2d=True) at full en4
+    width (bf16), their launch counts, latency and device busy time beside
+    the module path's; K4, K4a and K2c against their twins; the float32
+    A/Bs at 96x128 and at full width."""
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.models.spiking_swin import (
+        SpikingQKWindowAttention3D)
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_embed as E
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.serving import FlowServer
+    from sdformerflow_tpu_torch.training.config import build_configs
+    from sdformerflow_tpu_torch.training.train_step import (cast_params,
+                                                            make_eval_step)
+    model_cfg, swin, cfg = build_configs(config)
+    name = config["model"]["name"]
+    T = cfg.num_steps
+    hw = tuple(config["loader"]["crop"])
+    model = get_model(name, model_cfg, swin, cfg)
+    model.load_state_dict(state_dict)
+    model = cast_params(model.to(dev), torch.bfloat16)
+    n_attn = sum(isinstance(m, SpikingQKWindowAttention3D)
+                 for m in model.modules())
+    steps = {"module": make_eval_step(model, compute_dtype=torch.bfloat16),
+             "fused": make_eval_step(model, compute_dtype=torch.bfloat16,
+                                     fused_embed=True, num_steps=T)}
+    chunks = [torch.from_numpy(r)[None].to(dev) for r in
+              voxel_requests(N_EMBED_REQUESTS, 10, hw, SEED + 32)]
+    convs, spikes = capture_embed(torch, steps["fused"], chunks[0])
+    check(len(convs) == 8 and len(spikes) == 6,
+          f"fused embed: {len(convs)} K4 and {len(spikes)} K4a calls")
+    with torch.inference_mode():
+        k4 = phase_k4(torch, dev, convs)
+        psn = phase_k4a_k2c(torch, dev, spikes)
+    del convs, spikes
+    for step in steps.values():           # warm-up outside the counts
+        step(chunks[0])
+    counters = (E.conv3x3_affine_cs, E.psn_spike_cs, A.qk_attn_interior,
+                P.fused_affine_psn, P.psn_spike_tm)
+    for c in counters:
+        c.launches = 0
+    counted = chunks[:N_EMBED_COUNTED]
+    fused_only = request_loop(torch, {"fused": steps["fused"]}, counted)
+    n_k4, n_k4a, n_k1, n_k2, n_k2c = (c.launches for c in counters)
+    for c in counters:
+        c.launches = 0
+    module_only = request_loop(torch, {"module": steps["module"]}, counted)
+    module_k2 = P.fused_affine_psn.launches
+    n = len(counted)
+    check(n_k4 == 8 * n and n_k4a == 6 * n and n_k1 == n_attn * n,
+          f"fused path launches for {n} requests: K4 {n_k4}, K4a {n_k4a}, "
+          f"K1 {n_k1}")
+    check(module_k2 % n == 0 and n_k2 == module_k2 - 6 * n and n_k2c == 0,
+          f"K2 launches: fused {n_k2}, module {module_k2} for {n} requests")
+    for flow in fused_only["fused"][1] + module_only["module"][1]:
+        check(flow.shape == (2,) + hw and np.isfinite(flow).all(),
+              f"flow {flow.shape}, finite {np.isfinite(flow).all()}")
+    timed = request_loop(torch, steps, chunks)    # interleaved: latency
+    lat = {k: [float(v) for v in np.percentile(timed[k][0], [50, 90])]
+           for k in steps}
+    busy = {k: device_ms_per_call(torch, lambda s=step: s(chunks[0]), 8)
+            for k, step in steps.items()}
+    mean_d = float(np.mean([np.abs(a - b).mean() for a, b in zip(
+        fused_only["fused"][1], module_only["module"][1])]))
+    log(f"[10] fused-embed eval step (make_eval_step(fused_embed=True, "
+        f"num_steps={T}), en4 bf16 at {hw[0]}x{hw[1]}): {n} requests, flows "
+        f"finite; per request K4 {n_k4 // n}, K4a {n_k4a // n}, K1 "
+        f"{n_k1 // n}, K2 {n_k2 // n} (module path K2 {module_k2 // n}); "
+        f"mean |flow_fused - flow_module| {mean_d:.4g} (bf16)")
+    log(f"[10] latency over {len(chunks)} requests one at a time, fused "
+        f"and module "
+        f"interleaved, on {card}: fused p50 {lat['fused'][0]:.2f} ms, p90 "
+        f"{lat['fused'][1]:.2f}; module p50 {lat['module'][0]:.2f}, p90 "
+        f"{lat['module'][1]:.2f}; device busy per request (profiler, 8 "
+        f"requests): fused {busy['fused']}, module {busy['module']} ms")
+    del steps, model, timed, fused_only, module_only
+    torch.cuda.empty_cache()
+
+    # FlowServer(s2d=True) beside s2d=False, requests interleaved
+    servers = {"base": FlowServer(config, state_dict, device=dev, bf16=True),
+               "s2d": FlowServer(config, state_dict, device=dev, bf16=True,
+                                 s2d=True)}
+    try:
+        reqs = voxel_requests(N_EMBED_REQUESTS, 10, hw, SEED + 33)
+        for srv in servers.values():
+            srv.warmup()
+        A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
+        s_lat = {k: [] for k in servers}
+        for r in reqs:
+            for k, srv in servers.items():
+                t0 = time.perf_counter()
+                flow = srv.infer(r)
+                s_lat[k].append((time.perf_counter() - t0) * 1e3)
+                check(flow.shape == (2,) + hw and np.isfinite(flow).all(),
+                      f"{k} server flow {flow.shape}")
+        check(A.qk_attn_interior.launches == 2 * n_attn * len(reqs)
+              and P.fused_affine_psn.launches % (2 * len(reqs)) == 0,
+              f"servers: K1 {A.qk_attn_interior.launches}, K2 "
+              f"{P.fused_affine_psn.launches} for 2 x {len(reqs)} requests")
+        s2d_lat = {k: [float(v) for v in np.percentile(s_lat[k], [50, 90])]
+                   for k in servers}
+        s2d_busy = {k: device_ms_per_call(
+            torch, lambda s=srv: s.infer(reqs[0]), 8)
+            for k, srv in servers.items()}
+    finally:
+        for srv in servers.values():
+            srv.close()
+    log(f"[10] FlowServer(s2d=True) vs s2d=False, en4 bf16 at {hw[0]}x"
+        f"{hw[1]}, {len(reqs)} requests each, interleaved, on {card}: s2d "
+        f"p50 {s2d_lat['s2d'][0]:.2f} ms, p90 {s2d_lat['s2d'][1]:.2f}; base "
+        f"p50 {s2d_lat['base'][0]:.2f}, p90 {s2d_lat['base'][1]:.2f}; device "
+        f"busy per request: s2d {s2d_busy['s2d']}, base {s2d_busy['base']} "
+        f"ms")
+    del servers
+    torch.cuda.empty_cache()
+
+    # float32 A/Bs at 96x128 and at full width
+    small, mcfg, sw, scfg, small_state = small_en4(torch, config)
+    ab = {}
+    for label, args in (("96x128", (mcfg, sw, scfg, small_state)),
+                        ("288x384", (model_cfg, swin, cfg, state_dict))):
+        mc, sw_, cf, sd = args
+        m = get_model(name, mc, sw_, cf)
+        m.load_state_dict(sd)
+        m.float().to(dev)
+        chunk = torch.from_numpy(voxel_requests(
+            1, 10, tuple(sw_.input_size), SEED + 34)[0])[None].to(dev)
+        ab[f"fused_{label}"] = f32_embed_ab(torch, label, m, chunk)
+        del m
+        torch.cuda.empty_cache()
+    ab["s2d_96x128"] = f32_s2d_ab(
+        torch, dev, "96x128", small, small_state,
+        voxel_requests(1, 10, (96, 128), SEED + 34)[0])
+    return dict(k4=k4, k4a=psn["K4a"], k2c=psn["K2c"],
+                launches=dict(K4=n_k4, K4a=n_k4a, K1=n_k1, K2=n_k2,
+                              K2c=n_k2c, module_K2=module_k2, requests=n),
+                fused_p50_p90=lat["fused"], module_p50_p90=lat["module"],
+                fused_device_ms=busy["fused"],
+                module_device_ms=busy["module"],
+                s2d_p50_p90=s2d_lat["s2d"], base_p50_p90=s2d_lat["base"],
+                s2d_device_ms=s2d_busy["s2d"],
+                base_device_ms=s2d_busy["base"], f32_ab=ab)
+
+
 def main() -> int:
     try:
         import torch
@@ -1323,6 +1887,7 @@ def main() -> int:
         ab = phase_ab(torch, dev, config, state_dict)
         k2b = phase_k2b(torch, dev, config, state_dict)
         tr = phase_train(torch, dev, config, state_dict, card)
+        emb = phase_embed(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1336,7 +1901,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s "
         f"(build {build_s:.1f} s)")
     # launches: the raw-events path's run (phase 6); K1 and K2 also give
-    # the voxel path's (phase 5); K2b per train step (phase 9)
+    # the voxel path's (phase 5); K2b per train step (phase 9); K4, K4a and
+    # K2c the fused-embed path's counted run (phase 10; no path runs K2c)
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -1373,6 +1939,37 @@ def main() -> int:
          "uniform_max_abs_err": k3["uniform_max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
+        {"name": "K4 channels-second conv + BN affine (bf16, the 8 "
+                 "launches of one fused-embed request)", "route": "cuda",
+         "source": "sdformerflow_tpu_torch/csrc/conv_cs.cu",
+         "replaces": "sdformerflow_tpu/ops/pallas_embed.py:202",
+         "launches": emb["launches"]["K4"],
+         "max_abs_err": emb["k4"]["max_abs_err"],
+         "max_rel_err": emb["k4"]["max_rel_err"],
+         "bf16_max_rel_err": emb["k4"]["bf16_max_rel_err"],
+         "ms": emb["k4"]["ms"], "plain_ms": emb["k4"]["plain_ms"],
+         "bound_ms": emb["k4"]["bound_ms"], "bound_by": emb["k4"]["bound_by"],
+         "library_ms": emb["k4"]["library_ms"], "f32_ms": emb["k4"]["f32_ms"]},
+        {"name": "K4a channels-second PSN spike (bf16, the 6 sites of one "
+                 "fused-embed request)", "route": "triton",
+         "source": "sdformerflow_tpu_torch/ops/hopper_embed.py",
+         "replaces": "sdformerflow_tpu/ops/pallas_embed.py:93",
+         "launches": emb["launches"]["K4a"],
+         "max_abs_err": emb["k4a"]["max_abs_err"], "ms": emb["k4a"]["ms"],
+         "plain_ms": emb["k4a"]["plain_ms"],
+         "bound_ms": emb["k4a"]["bound_ms"],
+         "bound_by": emb["k4a"]["bound_by"], "library_ms": None,
+         "flip_share": emb["k4a"]["flip_share"]},
+        {"name": "K2c time-major PSN spike (bf16, [10, 27648, 96] + "
+                 "[10, 6912, 96]; on no path)", "route": "triton",
+         "source": "sdformerflow_tpu_torch/ops/hopper_psn.py",
+         "replaces": "sdformerflow_tpu/ops/pallas_psn.py:224",
+         "launches": emb["launches"]["K2c"],
+         "max_abs_err": emb["k2c"]["max_abs_err"], "ms": emb["k2c"]["ms"],
+         "plain_ms": emb["k2c"]["plain_ms"],
+         "bound_ms": emb["k2c"]["bound_ms"],
+         "bound_by": emb["k2c"]["bound_by"], "library_ms": None,
+         "flip_share": emb["k2c"]["flip_share"]},
     ]
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
@@ -1382,6 +1979,8 @@ def main() -> int:
                         if k not in ("k1", "k2", "k3")},
         "f32_ab": ab}))
     log(json.dumps({"train": tr}))
+    log(json.dumps({"embed": {k: v for k, v in emb.items()
+                              if k not in ("k4", "k4a", "k2c")}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

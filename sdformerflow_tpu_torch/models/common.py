@@ -24,8 +24,9 @@ class SpikingConfig:
     tau: float = 2.0
     detach_reset: bool = True
     spike_norm: Optional[str] = "BN"
-    # the JAX package's s2d embed re-expressions, not ported yet: setting
-    # one raises NotImplementedError
+    # the eval-only space-to-depth embed head (weights rearranged by
+    # training/s2d_embed.py); the train-capable s2d_train is not ported and
+    # raises NotImplementedError
     s2d_embed: bool = False
     s2d_train: bool = False
 

@@ -54,8 +54,9 @@ class SpikingSwinTransformer3D(nn.Module):
                 downsample=i < len(depths) - 1))
             h, w = -(-h // 2), -(-w // 2)  # merge pads odd sizes
 
-    def forward(self, x):
-        x = self.patch_embed(x)
+    def forward(self, x, pre_embedded: bool = False):
+        if not pre_embedded:   # else x is already the embed's output
+            x = self.patch_embed(x)
         outs = []
         for i in range(self.num_stages):
             x, pre_merge = getattr(self, f"stage{i}")(x)
@@ -94,8 +95,8 @@ class SpikingformerMultiResUNet(nn.Module):
                 decoder_out[i], num_output_channels, cfg, 1))
             x_ch = decoder_out[i]
 
-    def forward(self, x):
-        blocks = self.encoders(x)
+    def forward(self, x, pre_embedded: bool = False):
+        blocks = self.encoders(x, pre_embedded)
         x = blocks[-1]
         for i in range(self.num_residual_blocks):
             x = getattr(self, f"resblock{i}")(x)
@@ -125,8 +126,14 @@ class SpikingformerFlowNet(nn.Module):
             swin, cfg, num_bins=num_bins, base_num_channels=base_num_channels,
             num_encoders=num_encoders, kernel_size=kernel_size)
 
-    def forward(self, x):
+    def forward(self, x, pre_embedded=None):
+        """``x`` [B, bins, 2, H, W]; ``pre_embedded``, if given, is the patch
+        embed's output [T, B, H/4, W/4, C] computed elsewhere
+        (``ops/hopper_embed.py:fused_embed_forward``), and ``x`` then only
+        sets the output resolution."""
         H, W = x.shape[-2:]
+        preds = (self.sttmultires_unet(x) if pre_embedded is None
+                 else self.sttmultires_unet(pre_embedded, True))
         flows = [resize_nearest(p.sum(dim=0), (H, W)).permute(0, 3, 1, 2)
-                 for p in self.sttmultires_unet(x)]
+                 for p in preds]
         return {"flow": flows, "attn": None}

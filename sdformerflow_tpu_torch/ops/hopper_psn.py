@@ -26,9 +26,18 @@ the potential in K2's order and writes ``gh = g * ATan'(h)`` (float32) and
 ``dx = scale * W^T gh`` (x's dtype) in one pass; the forward saves only x
 and the parameters, as ``_fused_fwd`` saves its residuals.
 
+K2's kernel also serves the two other TPU forms of the same function,
+which differ from ``_fwd_kernel`` only in their block layout (a PSN mixes
+over the leading T axis whatever the trailing layout): K2c here
+(:func:`psn_spike_tm`, ``pallas_psn.py:psn_spike_tm`` on [T, M, C]) and
+K4a in ``ops/hopper_embed.py`` (``pallas_embed.py:psn_spike_cs`` on
+channels-second [T, C, H, W]), both with no affine, each through
+:func:`launch_k2` and counted on its own entry.
+
 Dispatch: a CUDA tensor launches the kernels (or the call raises), a CPU
-tensor runs the plain twins :func:`psn_spike` and :func:`psn_backward_plain`.
-Triton is imported, and K2b built, only when a kernel is launched.
+tensor runs the plain twins :func:`psn_spike`, :func:`psn_spike_tm_plain`
+and :func:`psn_backward_plain`. Triton is imported, and K2b built, only
+when a kernel is launched.
 """
 
 from __future__ import annotations
@@ -124,41 +133,77 @@ def _site_params(x_seq, weight, bias, scale, shift, kernel):
     return w, b, scale, shift
 
 
+def launch_k2(x_seq, weight, bias, *, scale=None, shift=None, out_dtype=None,
+              kernel="K2"):
+    """Launch K2's Triton kernel on a CUDA tensor [T, ...] (per-channel
+    affine on the last axis, or none) and return the 0/1 spikes in
+    ``out_dtype`` (default: the input's). Raises on what it does not take;
+    counts nothing: each entry that launches it keeps its own count."""
+    if not x_seq.is_cuda:
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {x_seq.device}")
+    out_dtype = out_dtype or x_seq.dtype
+    for name, dt in (("input", x_seq.dtype), ("output", out_dtype)):
+        if dt not in (torch.float32, torch.bfloat16, torch.float16):
+            raise TypeError(f"{kernel} takes float32/bfloat16/float16, got "
+                            f"{name} {dt}")
+    tensors = [x_seq, weight, bias] + ([] if scale is None
+                                       else [scale, shift])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{kernel} is forward-only: call it under "
+                                  "torch.no_grad() or inference_mode()")
+    T = x_seq.shape[0]
+    C = x_seq.shape[-1]
+    w, b, sc, sh = _site_params(x_seq, weight, bias, scale, shift, kernel)
+    if sc is None:
+        sc = sh = b  # unused: HAS_AFFINE is False
+    x = x_seq.contiguous()
+    N = x.numel() // T
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    triton, kern = _kernel()
+    with torch.cuda.device(x.device):
+        kern[(triton.cdiv(N, BLOCK),)](
+            x, w, b, sc, sh, out, N, C, T=T, BLOCK_N=BLOCK,
+            HAS_AFFINE=scale is not None,
+            num_warps=NUM_WARPS)
+    return out.reshape(x_seq.shape)
+
+
 def fused_affine_psn(x_seq, weight, bias, *, scale=None, shift=None):
     """PSN spikes of [T, ..., C] (optional per-channel affine on the last
     axis): K2 for a CUDA tensor, :func:`psn_spike` for a CPU tensor.
     Forward only: call it through :func:`affine_psn` for a gradient."""
     if x_seq.device.type == "cpu":
         return psn_spike(x_seq, weight, bias, scale=scale, shift=shift)
-    if not x_seq.is_cuda:
-        raise ValueError(f"K2 runs on CUDA tensors, got {x_seq.device}")
-    if x_seq.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"K2 takes float32/bfloat16/float16, got "
-                        f"{x_seq.dtype}")
-    tensors = [x_seq, weight, bias] + ([] if scale is None
-                                       else [scale, shift])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("K2 is forward-only: call it under "
-                                  "torch.no_grad() or inference_mode()")
-    T = x_seq.shape[0]
-    C = x_seq.shape[-1]
-    w, b, sc, sh = _site_params(x_seq, weight, bias, scale, shift, "K2")
-    if sc is None:
-        sc = sh = b  # unused: HAS_AFFINE is False
-    x = x_seq.contiguous()
-    N = x.numel() // T
-    out = torch.empty_like(x)
-    triton, kernel = _kernel()
-    with torch.cuda.device(x.device):
-        kernel[(triton.cdiv(N, BLOCK),)](
-            x, w, b, sc, sh, out, N, C, T=T, BLOCK_N=BLOCK,
-            HAS_AFFINE=scale is not None,
-            num_warps=NUM_WARPS)
+    out = launch_k2(x_seq, weight, bias, scale=scale, shift=shift)
     fused_affine_psn.launches += 1
-    return out.reshape(x_seq.shape)
+    return out
 
 
 fused_affine_psn.launches = 0
+
+
+# ------------------------------------------------------------------ K2c
+
+def psn_spike_tm_plain(x_seq, weight, bias):
+    """Plain twin of K2c: ``H(W @ x + b)`` over the time axis of [T, ..., C],
+    computed in >= float32, 0/1 spikes in ``x_seq``'s dtype."""
+    return psn_neuron(x_seq, weight, bias)
+
+
+def psn_spike_tm(x_seq, weight, bias):
+    """K2c, the layout-native PSN + heaviside of
+    ``sdformerflow_tpu/ops/pallas_psn.py:psn_spike_tm`` on time-major
+    [T, ..., C]: K2's kernel with no affine for a CUDA tensor (it takes any
+    column count, so there is no fallback geometry), the plain twin for a
+    CPU tensor. Counted on its own ``launches``."""
+    if x_seq.device.type == "cpu":
+        return psn_spike_tm_plain(x_seq, weight, bias)
+    out = launch_k2(x_seq, weight, bias, kernel="K2c")
+    psn_spike_tm.launches += 1
+    return out
+
+
+psn_spike_tm.launches = 0
 
 
 # ------------------------------------------------------------------ K2b

@@ -16,8 +16,12 @@ to the device in one non-blocking transfer, voxelized there by K3
 order-free, so the events are not sorted on the host. Event counts are
 padded to power-of-two buckets (:func:`next_bucket`).
 
-Not ported: mesh batching (one request is one batch-1 forward), the s2d
-and fused-attention options, and the HTTP wrapper ``scripts/serve.py``.
+``s2d=True`` serves the exact space-to-depth re-expression of the embed
+head (``training/s2d_embed.py``), as the JAX server's option does.
+
+Not ported: mesh batching (one request is one batch-1 forward), the
+fused-attention option (the port's eval attention always runs K1), and the
+HTTP wrapper ``scripts/serve.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from . import native
 from .models.registry import get_model
 from .training.config import build_configs
+from .training.s2d_embed import s2d_embed_state_dict
 from .training.train_step import make_eval_step
 
 
@@ -56,15 +61,24 @@ class FlowServer:
         statistics float32) - the deployment path.
     max_pending: bound on queued and in-flight requests before ``submit``
         blocks.
+    s2d: serve the space-to-depth re-expression of the embed head
+        (``training/s2d_embed.py``, exact; the MS_PED embed with BN only),
+        applied to the weights before the bf16 cast.
     """
 
     def __init__(self, config: dict, state_dict: Optional[dict] = None, *,
-                 device="cuda", bf16: bool = True, max_pending: int = 8):
+                 device="cuda", bf16: bool = True, max_pending: int = 8,
+                 s2d: bool = False):
         model_cfg, swin_cfg, spiking_cfg = build_configs(config)
         name = config["model"]["name"]
         model = get_model(name, model_cfg, swin_cfg, spiking_cfg)
         if state_dict is not None:
             model.load_state_dict(state_dict)
+        if s2d:
+            s2d_state = s2d_embed_state_dict(model.state_dict())
+            model = get_model(name, model_cfg, swin_cfg,
+                              spiking_cfg.replace(s2d_embed=True))
+            model.load_state_dict(s2d_state)
         self.device = torch.device(device)
         model.to(self.device)
 

@@ -17,6 +17,7 @@ import torch.nn as nn
 from ..losses import flow_loss_supervised
 from ..models.spiking_layers import TorchBatchNorm
 from ..models.spiking_swin import SpikingSwinBlock3D
+from ..ops.hopper_embed import fused_embed_forward
 from ..ops.hopper_voxel import voxel_grid_signed_k3
 from ..ops.normalization import encode_input
 
@@ -151,7 +152,8 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
 
 def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                    norm_input="minmax", spike_th=None, compute_dtype=None,
-                   voxelize=None, crop=None, use_batch_stats=False):
+                   voxelize=None, crop=None, use_batch_stats=False,
+                   fused_embed=False, num_steps=None):
     """Return ``eval_step(chunk) -> [flow]`` (coarse -> fine, float32).
 
     ``chunk``: [B, bins, H, W] signed voxels (or [B, bins, 2, H, W]) on the
@@ -170,7 +172,21 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
     train mode (batch statistics, drop-path drawn from a generator seeded 0
     at every call, as JAX passes ``PRNGKey(0)``) without updating the
     running statistics.
+
+    ``fused_embed=True`` computes the MS_PED patch embed with the
+    channels-second kernels K4 and K4a (``ops/hopper_embed.py``) over
+    ``num_steps`` time steps and feeds the network through its
+    ``pre_embedded`` input. It needs running-statistics BN and
+    ``num_steps``, and the base embed (not ``cfg.s2d_embed``, whose
+    block-space head the composition does not take); else it raises.
     """
+    if fused_embed:
+        if use_batch_stats or num_steps is None:
+            raise ValueError("fused_embed needs running-statistics BN "
+                             "(use_batch_stats=False) and num_steps")
+        if model.sttmultires_unet.encoders.patch_embed.s2d:
+            raise ValueError("fused_embed takes the base MS_PED embed, not "
+                             "the s2d re-expression (cfg.s2d_embed)")
     if compute_dtype is not None and any(
             p.dtype != compute_dtype for p in model.parameters()):
         model = cast_params(copy.deepcopy(model), compute_dtype)
@@ -189,7 +205,12 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
             x = _model_input(chunk, None, voxelize, crop, **kw)
             if compute_dtype is not None:
                 x = x.to(compute_dtype)
-            return [f.float() for f in model(x)["flow"]]
+            embedded = None
+            if fused_embed:
+                embedded = fused_embed_forward(
+                    model.sttmultires_unet.encoders.patch_embed, x,
+                    num_steps=num_steps)
+            return [f.float() for f in model(x, embedded)["flow"]]
 
     eval_step.model = model
     return eval_step

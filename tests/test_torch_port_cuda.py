@@ -12,7 +12,7 @@ kernel and twin must agree bit for bit.
 import pytest
 import torch
 
-from sdformerflow_tpu_torch.ops import hopper_attn, hopper_psn
+from sdformerflow_tpu_torch.ops import hopper_attn, hopper_embed, hopper_psn
 from sdformerflow_tpu_torch.ops import hopper_voxel, voxel
 
 pytestmark = pytest.mark.cuda
@@ -225,3 +225,62 @@ def test_k2b_refuses_what_it_does_not_take(dev):
     y = hopper_psn.affine_psn(*leaves, surrogate="sigmoid", alpha=4.0)
     with pytest.raises(NotImplementedError, match="ATan"):
         y.sum().backward()
+
+
+K4_CASES = [(3, 1, 2, 48), (3, 2, 48, 96), (3, 1, 96, 96), (1, 2, 96, 96),
+            (3, 1, 5, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,cin,cout", K4_CASES)
+def test_k4_matches_plain_bitwise(dev, dtype, k, stride, cin, cout):
+    """K4 vs its twin on dyadic inputs (every float32 sum exact): equal bit
+    for bit, with and without the affine, ragged tiles included. The twin
+    runs with cuDNN off: cuDNN may pick Winograd, whose transforms round."""
+    gen = torch.Generator().manual_seed(k + 3 * stride + cin)
+    x = _grid((3, cin, 19, 45), 0.25, -2.0, 2.0, gen).to(dev, dtype)
+    w = _grid((cout, cin, k, k), 0.125, -1.0, 1.0, gen).to(dev, dtype)
+    a = _grid((cout,), 0.25, 0.25, 2.0, gen).to(dev)
+    b = _grid((cout,), 0.25, -1.0, 1.0, gen).to(dev)
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=False):
+        for kw in (dict(scale=a, shift=b), dict(shift=b), {}):
+            before = hopper_embed.conv3x3_affine_cs.launches
+            got = hopper_embed.conv3x3_affine_cs(x, w, stride=stride, **kw)
+            assert hopper_embed.conv3x3_affine_cs.launches == before + 1
+            want = hopper_embed.conv3x3_affine_cs_plain(x, w, stride=stride,
+                                                        **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == want.shape
+            assert got.shape[-2:] == (-(-19 // stride), -(-45 // stride))
+            assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError):
+        hopper_embed.conv3x3_affine_cs(x, w.clone().requires_grad_(),
+                                       stride=stride)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4a_and_k2c_match_plain_bitwise(dev, dtype):
+    """K4a on channels-second [T, C, H, W] (with another output dtype) and
+    K2c on [T, M, C], each on its own counter, equal to their twins."""
+    gen = torch.Generator().manual_seed(17)
+    T = 10
+    w = _grid((T, T), 0.125, -1.0, 1.0, gen).to(dev)
+    b = _grid((T, 1), 0.25, -1.0, 1.0, gen).to(dev)
+    x = _grid((T, 12, 9, 31), 0.25, -2.0, 2.0, gen).to(dev, dtype)
+    with torch.inference_mode():
+        k2 = hopper_psn.fused_affine_psn.launches
+        for out_dtype in (None, torch.bfloat16, torch.float32):
+            before = hopper_embed.psn_spike_cs.launches
+            got = hopper_embed.psn_spike_cs(x, w, b, out_dtype=out_dtype)
+            assert hopper_embed.psn_spike_cs.launches == before + 1
+            assert got.dtype == (out_dtype or dtype)
+            assert torch.equal(got, hopper_embed.psn_spike_cs_plain(
+                x, w, b, out_dtype))
+        xt = _grid((T, 100, 96), 0.25, -2.0, 2.0, gen).to(dev, dtype)
+        before = hopper_psn.psn_spike_tm.launches
+        got = hopper_psn.psn_spike_tm(xt, w, b)
+        assert hopper_psn.psn_spike_tm.launches == before + 1
+        assert hopper_psn.fused_affine_psn.launches == k2
+        assert got.dtype == dtype
+        assert torch.equal(got, hopper_psn.psn_spike_tm_plain(xt, w, b))
+        assert 0.0 < got.float().mean().item() < 1.0

@@ -19,12 +19,12 @@ PROBE = textwrap.dedent("""
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                         "sdformerflow_tpu"))
     from sdformerflow_tpu_torch import kernel_build, native
-    from sdformerflow_tpu_torch.ops import (hopper_attn, hopper_psn,
-                                            hopper_voxel)
+    from sdformerflow_tpu_torch.ops import (hopper_attn, hopper_embed,
+                                            hopper_psn, hopper_voxel)
     built = sum(f.cache_info().currsize for f in (
         kernel_build.load_cuda_library, kernel_build.load_host_library,
         native._lib, hopper_attn._kernel_fn, hopper_voxel._kernel_fn,
-        hopper_psn._kernel, hopper_psn._bwd_kernel_fn))
+        hopper_psn._kernel, hopper_psn._bwd_kernel_fn, hopper_embed._conv_fn))
     print(len(names), built, bad, " ".join(names))
 """)
 
@@ -32,11 +32,12 @@ PROBE = textwrap.dedent("""
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 28, out
+    assert int(out[0]) >= 31, out
     assert out[1:3] == ["0", "[]"], out    # nothing built, nothing of jax
     for name in ("native", "ops.voxel", "ops.hopper_voxel", "serving",
                  "training.train_step", "training.optim",
                  "training.train_loop", "training.checkpoints", "losses",
                  "data.dsec", "data.augmentation", "utils.logging",
-                 "train_dsec"):
+                 "train_dsec", "ops.hopper_embed", "ops.s2d",
+                 "training.s2d_embed"):
         assert f"sdformerflow_tpu_torch.{name}" in out[3:], name

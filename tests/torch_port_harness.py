@@ -34,9 +34,9 @@ def randomize_tree(variables, seed: int):
 
 
 def flownet_pair(*, size, depths, heads, window, num_steps, num_bins, base,
-                 drop_path_rate=0.2):
+                 drop_path_rate=0.2, s2d_embed=False):
     """(JAX model with the fused Pallas attention, port model) of one
-    SDformerFlow geometry."""
+    SDformerFlow geometry, with the s2d embed head if ``s2d_embed``."""
     swin_kw = dict(arc_type="swinv1",
                    patch_embed_type="MS_PED_Spiking_PatchEmbed_Conv_sfn",
                    input_size=size, patch_size=(1, 1, 2, 2), depths=depths,
@@ -44,7 +44,7 @@ def flownet_pair(*, size, depths, heads, window, num_steps, num_bins, base,
                    window_size=window, qk_scale=0.125,
                    drop_path_rate=drop_path_rate)
     cfg_kw = dict(num_steps=num_steps, v_th=0.1, v_reset=None,
-                  neuron_type="psn", spike_norm="BN")
+                  neuron_type="psn", spike_norm="BN", s2d_embed=s2d_embed)
     net_kw = dict(num_bins=num_bins, base_num_channels=base,
                   num_encoders=len(depths), use_upsample_conv=False, ms=True)
     jmodel = JSpikingformerFlowNet(
