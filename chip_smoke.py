@@ -10,9 +10,12 @@ Phases (any failure exits non-zero):
 1. build every kernel from the sources in the checkout - K1, K2b, K3 and K4
    by nvcc and the event packer by g++, in parallel, K2 by Triton meanwhile
    - and print the build seconds and ptxas' register and memory report;
+   read the SASS of K1 and K4 (cuobjdump) and fail unless every bf16
+   tensor-core instantiation holds HGMMA (wgmma) instructions;
 2. K1 vs its plain twin at the attention shapes the en4 forward gives it,
    float32 and bfloat16: bitwise on dyadic inputs, flipped-spike share on
-   Gaussian and on real captured inputs; timings beside the bound;
+   Gaussian and on real captured inputs; timings beside the bound and
+   beside K1's first, CUDA-core version on the same input;
 3. K2 vs its plain twin at every PSN site shape of the forward, same checks;
 4. K3's four entries vs their plain twins at 480x640, 10 and 15 bins, 2^20
    event slots: bitwise on dyadic events, within 1e-4 on uniform ones;
@@ -54,8 +57,9 @@ Phases (any failure exits non-zero):
    conv + BN affine) at the 8 launch shapes of a full-width fused embed,
    float32 and bfloat16, bitwise on dyadic inputs, within 1e-5 (f32) or one
    bfloat16 rounding of the twin's largest on Gaussian ones, timed beside
-   its twin, the bound and cuDNN; K4a at the embed's 6 PSN sites and K2c at
-   [10, 27648, 96] and [10, 6912, 96] (same checks as K2); then
+   its twin, the bound, cuDNN and K4's first, CUDA-core version; K4a at the
+   embed's 6 PSN sites and K2c at [10, 27648, 96] and [10, 6912, 96] (same
+   checks as K2); then
    ``make_eval_step(fused_embed=True, num_steps=10)`` on the en4 bf16
    model at 288x384: K4 8, K4a 6 and K1 12 launches a request, K2 6 fewer
    than the module path's; latency over 64 requests and device busy, fused
@@ -184,7 +188,39 @@ def phase_build(torch, dev):
     wall = time.perf_counter() - t_start
     log(f"[1] build: K2 triton {t_triton:.2f} s; all kernels {wall:.2f} s "
         f"wall (nvcc, g++ and triton in parallel)")
+    for source, kernel in TENSOR_CORE_KERNELS:
+        counts = sass_hgmma(kernel_build.build_cuda_library(source)[0])
+        mine = {f: n for f, n in counts.items() if kernel in f}
+        log(f"[1] SASS of {source}: " + "; ".join(
+            f"{f[:90]} HGMMA x{n}" for f, n in sorted(counts.items())))
+        check(mine and all(n > 0 for n in mine.values()),
+              f"{source}: a bf16 {kernel} instantiation has no HGMMA "
+              f"instruction in its SASS ({mine})")
     return wall
+
+
+# the bf16 kernels that must run on the tensor cores: (source, the name
+# every instantiation's symbol contains)
+TENSOR_CORE_KERNELS = (("conv_cs.cu", "conv_wgmma_kernel"),
+                       ("qk_attn.cu", "qk_attn_wgmma_kernel"))
+
+
+def sass_hgmma(lib):
+    """{kernel symbol: count of HGMMA instructions} of a built library, read
+    with cuobjdump -sass from the toolkit that built it."""
+    from sdformerflow_tpu_torch import kernel_build
+    tool = os.path.join(os.path.dirname(kernel_build._nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True)
+    check(proc.returncode == 0, f"cuobjdump -sass {lib}: {proc.stderr}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 # ------------------------------------------------------------- bounds
@@ -270,7 +306,8 @@ def phase_k1(torch, dev, attn_inputs):
     for mod, x in attn_inputs:
         key = (tuple(x.shape), mod.num_heads)
         shapes.setdefault(key, []).append((mod, x))
-    max_err, worst_flip, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    max_err, worst_flip, ms, plain_ms, earlier_ms = 0.0, 0.0, 0.0, 0.0, 0.0
+    device_ms, earlier_device_ms = 0.0, 0.0
     rates = []
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for (shape, nh), sites in shapes.items():
@@ -324,8 +361,19 @@ def phase_k1(torch, dev, attn_inputs):
         t_k = cuda_time_ms(lambda: A.qk_attn_interior(x_real, p_real, nh))
         t_p = cuda_time_ms(
             lambda: A.qk_attn_interior_plain(x_real, p_real, nh))
+        # the first, CUDA-core K1 on the same input: the yardstick
+        t_e = cuda_time_ms(lambda: A.prepare_qk_attn_interior(
+            x_real, p_real, nh, cuda_cores=True)[0]())
+        # the kernels alone: back-to-back launches of prepared arguments,
+        # without the wrapper's host work and weight re-layout
+        d_k = cuda_time_ms(A.prepare_qk_attn_interior(x_real, p_real, nh)[0])
+        d_e = cuda_time_ms(A.prepare_qk_attn_interior(
+            x_real, p_real, nh, cuda_cores=True)[0])
         ms += t_k * len(sites)
         plain_ms += t_p * len(sites)
+        earlier_ms += t_e * len(sites)
+        device_ms += d_k * len(sites)
+        earlier_device_ms += d_e * len(sites)
         # x read and the 0/1 products written once, the weights, pe and
         # affine/PSN rows read once; 4 C x C products per row (q and k, two
         # halves), on the bf16 tensor cores (0/1 x bf16 is exact there)
@@ -336,14 +384,24 @@ def phase_k1(torch, dev, attn_inputs):
         b_ms, by = bound(site_bytes, site_flops, BF16_TC_FLOP_S)
         bound_by[by] += b_ms * len(sites)
         log(f"[2] K1 M={M} C={C} bf16 x{len(sites)}/forward: main-path "
-            f"inputs flipped share {real_flip:.3g}; kernel {t_k:.4f} ms, "
-            f"plain {t_p:.4f} ms; {site_bytes / 1e6:.2f} MB, "
-            f"{site_flops / 1e9:.3f} GFLOP, bound {b_ms:.4f} ms ({by}), "
-            f"kernel at {100 * b_ms / t_k:.1f}% of it")
+            f"inputs flipped share {real_flip:.3g}; wrapper {t_k:.4f} ms "
+            f"(CUDA-core K1 {t_e:.4f}), plain {t_p:.4f} ms; kernel alone "
+            f"{d_k:.4f} ms (CUDA-core K1 {d_e:.4f}); "
+            f"{site_bytes / 1e6:.2f} MB, {site_flops / 1e9:.3f} GFLOP, bound "
+            f"{b_ms:.4f} ms ({by}): kernel alone at {100 * b_ms / d_k:.1f}% "
+            f"of it (CUDA-core K1 {100 * b_ms / d_e:.1f}%), wrapper at "
+            f"{100 * b_ms / t_k:.1f}%")
     bound_ms = sum(bound_by.values())
+    log(f"[2] K1 per forward (bf16): wrapper {ms:.4f} ms (CUDA-core K1 "
+        f"{earlier_ms:.4f}), kernel alone {device_ms:.4f} ms (CUDA-core K1 "
+        f"{earlier_device_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms: kernel alone at "
+        f"{100 * bound_ms / device_ms:.1f}% of it")
     return dict(max_abs_err=max_err, flip_share=worst_flip, ms=ms,
-                plain_ms=plain_ms, rates=rates, n_shapes=len(shapes),
-                bound_ms=bound_ms, bound_by=max(bound_by, key=bound_by.get))
+                plain_ms=plain_ms, earlier_ms=earlier_ms, device_ms=device_ms,
+                earlier_device_ms=earlier_device_ms, rates=rates,
+                n_shapes=len(shapes), bound_ms=bound_ms,
+                bound_by=max(bound_by, key=bound_by.get))
 
 
 # ------------------------------------------------------------ phase 3
@@ -1366,6 +1424,7 @@ def phase_k4(torch, dev, convs):
     from sdformerflow_tpu_torch.ops import hopper_embed as E
     gen = torch.Generator(dev).manual_seed(SEED + 30)
     out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, f32_ms=0.0,
+               earlier_ms=0.0, device_ms=0.0, earlier_device_ms=0.0,
                max_abs_err=0.0, max_rel_err=0.0, bf16_max_rel_err=0.0)
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for x_real, w_real, sc_real, sh_real, stride in convs:
@@ -1414,6 +1473,16 @@ def phase_k4(torch, dev, convs):
         t_k = cuda_time_ms(run, iters=10)
         t_p = cuda_time_ms(lambda: E.conv3x3_affine_cs_plain(
             x_real, w_real, sc_real, sh_real, stride=stride), iters=10)
+        # the first, CUDA-core K4 on the same input: the yardstick
+        t_e = cuda_time_ms(lambda: E.prepare_conv3x3_affine_cs(
+            x_real, w_real, sc_real, sh_real, stride=stride,
+            cuda_cores=True)[0](), iters=10)
+        # the kernels alone: back-to-back launches of prepared arguments
+        d_k = cuda_time_ms(E.prepare_conv3x3_affine_cs(
+            x_real, w_real, sc_real, sh_real, stride=stride)[0], iters=10)
+        d_e = cuda_time_ms(E.prepare_conv3x3_affine_cs(
+            x_real, w_real, sc_real, sh_real, stride=stride,
+            cuda_cores=True)[0], iters=10)
         a_f = (torch.ones(cout, device=dev) if sc_real is None
                else sc_real.float())
         w_f = (w_real.float() * a_f.reshape(-1, 1, 1, 1)).to(x_real.dtype)
@@ -1427,19 +1496,29 @@ def phase_k4(torch, dev, convs):
         out["ms"] += t_k
         out["plain_ms"] += t_p
         out["library_ms"] += t_l
+        out["earlier_ms"] += t_e
+        out["device_ms"] += d_k
+        out["earlier_device_ms"] += d_e
         log(f"[10] K4 {cin}->{cout} k{k} s{stride} at {H}x{W} (N={N}): "
             f"dyadic bitwise f32/bf16, gaussian max|d| f32 "
             f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g} of "
-            f"the twin's largest; bf16 kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, cuDNN {t_l:.4f} ms; "
+            f"the twin's largest; bf16 wrapper {t_k:.4f} ms (CUDA-core K4 "
+            f"{t_e:.4f}), plain {t_p:.4f} ms, cuDNN {t_l:.4f} ms; alone: "
+            f"kernel {d_k:.4f} ms, CUDA-core K4 {d_e:.4f}; "
             f"{2 * y.numel() * cin * k * k / 1e9:.2f} GFLOP, bound "
-            f"{b_ms:.4f} ms ({by}), kernel at {100 * b_ms / t_k:.1f}% of it")
+            f"{b_ms:.4f} ms ({by}): kernel alone at {100 * b_ms / d_k:.1f}% "
+            f"of it (CUDA-core K4 {100 * b_ms / d_e:.1f}%, cuDNN "
+            f"{100 * b_ms / t_l:.1f}%)")
     out.update(bound_ms=sum(bound_by.values()),
                bound_by=max(bound_by, key=bound_by.get), n_shapes=len(convs))
-    log(f"[10] K4 per request ({len(convs)} launches, bf16): kernel "
-        f"{out['ms']:.3f} ms (f32 {out['f32_ms']:.3f}), twin "
+    log(f"[10] K4 per request ({len(convs)} launches, bf16): wrapper "
+        f"{out['ms']:.3f} ms (f32 {out['f32_ms']:.3f}; CUDA-core K4 "
+        f"{out['earlier_ms']:.3f}), kernel alone {out['device_ms']:.3f} ms "
+        f"(CUDA-core K4 {out['earlier_device_ms']:.3f}), twin "
         f"{out['plain_ms']:.3f} ms, cuDNN {out['library_ms']:.3f} ms, bound "
-        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+        f"{out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}): kernel alone at "
+        f"{100 * out['bound_ms'] / out['device_ms']:.1f}% of it")
     return out
 
 
@@ -1911,6 +1990,8 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
+         "earlier_ms": k1["earlier_ms"], "device_ms": k1["device_ms"],
+         "earlier_device_ms": k1["earlier_device_ms"],
          "flip_share": k1["flip_share"]},
         {"name": "K2 fused affine PSN forward", "route": "triton",
          "source": "sdformerflow_tpu_torch/ops/hopper_psn.py",
@@ -1949,7 +2030,10 @@ def main() -> int:
          "bf16_max_rel_err": emb["k4"]["bf16_max_rel_err"],
          "ms": emb["k4"]["ms"], "plain_ms": emb["k4"]["plain_ms"],
          "bound_ms": emb["k4"]["bound_ms"], "bound_by": emb["k4"]["bound_by"],
-         "library_ms": emb["k4"]["library_ms"], "f32_ms": emb["k4"]["f32_ms"]},
+         "library_ms": emb["k4"]["library_ms"], "f32_ms": emb["k4"]["f32_ms"],
+         "earlier_ms": emb["k4"]["earlier_ms"],
+         "device_ms": emb["k4"]["device_ms"],
+         "earlier_device_ms": emb["k4"]["earlier_device_ms"]},
         {"name": "K4a channels-second PSN spike (bf16, the 6 sites of one "
                  "fused-embed request)", "route": "triton",
          "source": "sdformerflow_tpu_torch/ops/hopper_embed.py",

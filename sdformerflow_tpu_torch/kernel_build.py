@@ -3,8 +3,9 @@
 CUDA C++ sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``,
 and host C++ sources (the event packer) by ``g++``, into shared libraries
 with a plain C interface, loaded with ``ctypes``.
-Each library is keyed by a hash of its source and the compiler flags, so an
-edit rebuilds it and an unchanged source is reused. Everything is written
+Each library is keyed by a hash of its source, every header under ``csrc/``
+(``*.cuh``, which the sources include) and the compiler flags, so an edit
+rebuilds it and an unchanged source is reused. Everything is written
 under ``_build/`` inside the package (listed in ``.gitignore``), including
 Triton's cache, so a checkout builds in place and writes nothing outside it.
 Nothing here runs at import time.
@@ -42,11 +43,20 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest(src: Path, flags, csrc_dir: Path = CSRC_DIR) -> str:
+    """The build key of ``src``: a hash of its bytes, of every ``*.cuh``
+    header in ``csrc_dir`` (name and bytes, in name order) and of the
+    compiler flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def _build(source_name: str, compiler: str, flags) -> tuple[Path, str]:
     src = CSRC_DIR / source_name
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+    lib = BUILD_DIR / f"{src.stem}-{source_digest(src, flags)}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

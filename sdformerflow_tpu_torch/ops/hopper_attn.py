@@ -11,9 +11,11 @@ and the pair-regroup + proj linear + BN affine tail runs in torch here, as
 it ran in XLA.
 
 What bounds it on the card and what the design does about it is in the
-source note of ``csrc/qk_attn.cu``. What the TPU kernel needed and this one
-does not: block pickers, token padding 81 -> 84, 0/1 pooling-matrix dots
-and the f32 large-C fallback.
+source note of ``csrc/qk_attn.cu``: in bfloat16 the q/k products run on
+the tensor cores (wgmma) against [Wq | Wk] re-laid by
+:func:`pack_qk_weight`; float32 keeps the CUDA-core kernel. What the TPU
+kernel needed and this one does not: block pickers, token padding 81 -> 84,
+0/1 pooling-matrix dots and the f32 large-C fallback.
 
 Dispatch: :func:`fused_qk_attention` runs the kernel for a CUDA tensor (or
 raises) and the plain twin :func:`qk_attention_pairlocal` for a CPU tensor.
@@ -27,6 +29,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernel_build import load_cuda_library
 
@@ -141,24 +144,71 @@ def qk_attention_pairlocal(x_windows, p: QKAttnParams, num_heads: int):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BF16_CUDA_CORES = 2   # the kernel entry's code of the bf16 CUDA-core path
+
+
+def _kernel_code(dtype, cuda_cores):
+    return (_BF16_CUDA_CORES if cuda_cores and dtype == torch.bfloat16
+            else _DTYPE_CODES[dtype])
+
+
+# the bf16 kernel's tiles (csrc/qk_attn.cu, namespace tc): output channels
+# a block, input channels a K chunk
+QK_GROUP = 32
+QK_KCHUNK = 64
+
+
+def pack_qk_weight(wq, wk):
+    """[Wq | Wk] (input-major [C, C]) as the bf16 kernel's shared-memory
+    image: [ceil(C / 32), ceil(C / 64), 8, 64, 8], zero-padded. Entry
+    (g, kc, kg, n, kk) is Wq[k, c] for n < 32 and Wk[k, c] after, with input
+    channel k = 64 kc + 8 kg + kk and output channel c = 32 g + n % 32: per
+    channel group g and K chunk kc, 8 K-major core matrices of 64 rows [q |
+    k] x 8 input channels."""
+    C = wq.shape[0]
+    if wq.shape != (C, C) or wk.shape != (C, C):
+        raise ValueError(f"pack_qk_weight takes two [C, C] weights, got "
+                         f"{tuple(wq.shape)} and {tuple(wk.shape)}")
+    ng, nk = -(-C // QK_GROUP), -(-C // QK_KCHUNK)
+    z = F.pad(torch.stack([wq, wk], 1),
+              (0, ng * QK_GROUP - C, 0, 0, 0, nk * QK_KCHUNK - C))
+    z = z.reshape(nk, QK_KCHUNK // 8, 8, 2, ng, QK_GROUP)
+    return z.permute(4, 0, 1, 3, 5, 2).reshape(
+        ng, nk, QK_KCHUNK // 8, 2 * QK_GROUP, 8).contiguous()
 
 
 @functools.cache
 def _kernel_fn():
     fn = load_cuda_library("qk_attn.cu").qk_attn_forward
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _psn_row(w, b):
-    return torch.cat([w.reshape(4), b.reshape(2)]).to(torch.float32)
+def _aligned(t):
+    """``t``, copied when its data does not start on 16 bytes (the
+    kernels' vector loads)."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
-def qk_attn_interior(x_windows, p: QKAttnParams, num_heads: int):
-    """Launch K1 on a CUDA tensor: [2, M, wh, ww, C] (float32 or bfloat16)
-    -> the 0/1 slab-local products [2, M, ns, C] in the input's dtype."""
+def _psn_rows(p: QKAttnParams):
+    """The kernel's [4, 6] PSN table in one cat: (w00, w01, w10, w11, b0,
+    b1) of the input, q, k and token neurons, float32."""
+    return torch.cat([t.reshape(-1) for t in (
+        p.w_in, p.b_in, p.w_q, p.b_q, p.w_k, p.b_k, p.w_t, p.b_t)]).to(
+            torch.float32)
+
+
+def prepare_qk_attn_interior(x_windows, p: QKAttnParams, num_heads: int,
+                             *, cuda_cores=False):
+    """Check and lay out one K1 launch on CUDA tensors (the arguments of
+    :func:`qk_attn_interior`): returns ``(launch, out)``, where each call of
+    ``launch()`` runs the kernel once on these arguments into ``out``
+    ([2, M, ns, C]) and raises if the launch fails; it counts no launch.
+    ``cuda_cores=True`` lays a bfloat16 input out for the CUDA-core kernel
+    instead (K1's first version). ``chip_smoke.py`` times ``launch``, the
+    kernel alone, and that yardstick beside it."""
     _check(x_windows, num_heads)
     if not x_windows.is_cuda:
         raise ValueError("qk_attn_interior runs on CUDA tensors only")
@@ -170,30 +220,49 @@ def qk_attn_interior(x_windows, p: QKAttnParams, num_heads: int):
                                   "torch.no_grad() or inference_mode()")
     _, M, wh, ww, C = x_windows.shape
     ns, dt = wh * ww, x_windows.dtype
-    x = x_windows.contiguous()
-    wq = p.wq.to(dt).contiguous()
-    wk = p.wk.to(dt).contiguous()
+    x = _aligned(x_windows.contiguous())
+    wq, wk = p.wq.to(dt), p.wk.to(dt)
     pe = p.pe.to(dt).reshape(2, ns, C).contiguous()
     affine = torch.stack([p.aq, p.cq, p.ak, p.ck]).to(torch.float32)
-    psn = torch.cat([_psn_row(p.w_in, p.b_in), _psn_row(p.w_q, p.b_q),
-                     _psn_row(p.w_k, p.b_k), _psn_row(p.w_t, p.b_t)])
-    if wq.shape != (C, C) or wk.shape != (C, C) or affine.shape != (4, C):
+    psn = _psn_rows(p)
+    if (wq.shape != (C, C) or wk.shape != (C, C) or affine.shape != (4, C)
+            or psn.shape != (24,)):
         raise ValueError(f"K1 parameters do not match C={C}")
     if any(t.device != x.device for t in (wq, wk, pe, affine, psn)):
         raise ValueError("K1 parameters must be on the input's device")
     affine, psn = affine.contiguous(), psn.contiguous()
+    if dt == torch.bfloat16 and not cuda_cores:   # tensor cores
+        wq, wk, wpk = None, None, pack_qk_weight(wq, wk)
+    else:
+        wq, wk, wpk = wq.contiguous(), wk.contiguous(), None
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(
-            x.data_ptr(), wq.data_ptr(), wk.data_ptr(), pe.data_ptr(),
-            affine.data_ptr(), psn.data_ptr(), out.data_ptr(),
-            M * ns, C, num_heads, ns, _DTYPE_CODES[dt],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K1 (qk_attn_forward) launch failed: CUDA error "
-                           f"{err}")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = (x.data_ptr(), ptr(wq), ptr(wk), ptr(wpk), pe.data_ptr(),
+            affine.data_ptr(), psn.data_ptr(), out.data_ptr(), M * ns, C,
+            num_heads, ns, _kernel_code(dt, cuda_cores))
+    keep = (x, wq, wk, wpk, pe, affine, psn)   # alive as long as the closure
+
+    def launch():
+        with torch.cuda.device(out.device):
+            err = _kernel_fn()(
+                *args, torch.cuda.current_stream(out.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K1 (qk_attn_forward) launch failed: CUDA "
+                               f"error {err}")
+        return keep
+
+    return launch, out.reshape(2, M, ns, C)
+
+
+def qk_attn_interior(x_windows, p: QKAttnParams, num_heads: int):
+    """Launch K1 on a CUDA tensor: [2, M, wh, ww, C] (float32 or bfloat16)
+    -> the 0/1 slab-local products [2, M, ns, C] in the input's dtype.
+    bfloat16 runs the tensor-core kernel on :func:`pack_qk_weight`'s
+    layout, float32 the CUDA-core kernel; both count on ``launches``."""
+    launch, out = prepare_qk_attn_interior(x_windows, p, num_heads)
+    launch()
     qk_attn_interior.launches += 1
-    return out.reshape(2, M, ns, C)
+    return out
 
 
 qk_attn_interior.launches = 0

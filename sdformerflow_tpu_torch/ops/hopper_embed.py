@@ -9,8 +9,10 @@ Replaces the Pallas TPU kernels of ``sdformerflow_tpu/ops/pallas_embed.py``:
   eval BN, or a conv bias). Here ``csrc/conv_cs.cu``, on NCHW-ordered
   ``[N, Cin, H, W]`` with N = T * B (channels-second is PyTorch's NCHW with
   time folded into the batch) and OIHW weights; it also takes an output
-  stride of 2, computing only the outputs the stride keeps. Its source note
-  says what bounds it and what its design does about that.
+  stride of 2, computing only the outputs the stride keeps. bfloat16 runs
+  an implicit GEMM on the tensor cores (wgmma) over the weight re-laid by
+  :func:`pack_conv_weight`; float32 keeps the CUDA-core kernel. Its source
+  note says what bounds it and what its design does about that.
 - K4a, ``psn_spike_cs`` (``_psn_cs_kernel``): ``H(W[T, T] x + b)`` over the
   leading T axis with no affine. That is K2's function on the ``[T, rest]``
   view, so it launches K2's kernel (``ops/hopper_psn.py:launch_k2``), with
@@ -40,6 +42,12 @@ from .hopper_psn import launch_k2
 from .neurons import psn_neuron
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BF16_CUDA_CORES = 2   # the kernel entry's code of the bf16 CUDA-core path
+
+
+def _kernel_code(dtype, cuda_cores):
+    return (_BF16_CUDA_CORES if cuda_cores and dtype == torch.bfloat16
+            else _DTYPE_CODES[dtype])
 
 
 # ------------------------------------------------------------------- K4
@@ -60,10 +68,46 @@ def conv3x3_affine_cs_plain(x, weight, scale=None, shift=None, *, stride=1):
     return y.to(x.dtype)
 
 
+# the bf16 kernel's K chunk (csrc/conv_cs.cu, namespace tc): 16 input
+# channels, or 16 of the folded ci * k * k axis, which it zero-pads to 4
+# chunks
+CONV_KCHUNK = 16
+CONV_FOLD_CHUNKS = 4
+
+
+def conv_tile_config(cin, cout, k, stride):
+    """(block width nt, fold) of the bf16 kernel for a conv: nt = 48 when
+    Cout fits, else 96 (blocks of 96 channels); fold the taps into K when
+    Cin * k * k <= 64 at k = 3, stride 1 (the head: 2 * 9 = 18 -> 64)."""
+    nt = 48 if cout <= 48 else 96
+    fold_max = CONV_KCHUNK * CONV_FOLD_CHUNKS
+    return nt, k == 3 and stride == 1 and cin * k * k <= fold_max
+
+
+def pack_conv_weight(weight, nt, fold):
+    """The OIHW ``weight`` as the bf16 kernel's shared-memory image:
+    [ceil(Cout / nt), ceil(Kin / 16), taps, 2, nt, 8], zero-padded, where
+    Kin, taps = Cin, k * k, or 64, 1 when ``fold`` (Cin * k * k padded to
+    64). Entry (n, c, t, g, o, i) is weight[nt * n + o, 16 * c + 8 * g + i,
+    tap t] (the folded axis in OIHW order ci * k * k + tap): per
+    output-channel block n and K chunk c, each tap's two K-major
+    core-matrix columns of nt rows x 8 inputs."""
+    cout, cin, k, _ = weight.shape
+    w = weight.reshape(cout, cin * k * k, 1) if fold else weight.reshape(
+        cout, cin, k * k)
+    kin, taps = w.shape[1:]
+    nn = -(-cout // nt)
+    nc = CONV_FOLD_CHUNKS if fold else -(-kin // CONV_KCHUNK)
+    z = w.new_zeros(nn * nt, nc * CONV_KCHUNK, taps)
+    z[:cout, :kin] = w
+    z = z.reshape(nn, nt, nc, 2, 8, taps)
+    return z.permute(0, 2, 5, 3, 1, 4).contiguous()
+
+
 @functools.cache
 def _conv_fn():
     fn = load_cuda_library("conv_cs.cu").conv_cs
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -78,15 +122,15 @@ def _affine_vector(v, cout, device, name):
     return v.to(torch.float32).reshape(cout).contiguous()
 
 
-def conv3x3_affine_cs(x, weight, scale=None, shift=None, *, stride=1):
-    """K4: ``x`` [N, Cin, H, W], ``weight`` OIHW [Cout, Cin, k, k] with k 3
-    or 1 (SAME padding), ``scale``/``shift`` [Cout] (None: 1 / 0), output
-    stride 1 or 2 -> [N, Cout, ceil(H / stride), ceil(W / stride)] in
-    ``x``'s dtype. A CUDA tensor launches the kernel (float32 or bfloat16),
-    a CPU tensor runs :func:`conv3x3_affine_cs_plain`. Forward only."""
-    if x.device.type == "cpu":
-        return conv3x3_affine_cs_plain(x, weight, scale, shift,
-                                       stride=stride)
+def prepare_conv3x3_affine_cs(x, weight, scale=None, shift=None, *,
+                              stride=1, cuda_cores=False):
+    """Check and lay out one K4 launch on CUDA tensors (the arguments of
+    :func:`conv3x3_affine_cs`): returns ``(launch, out)``, where each call
+    of ``launch()`` runs the kernel once on these arguments into ``out`` and
+    raises if the launch fails; it counts no launch. ``cuda_cores=True``
+    lays a bfloat16 input out for the CUDA-core kernel instead (K4's first
+    version). ``chip_smoke.py`` times ``launch``, the kernel alone, and that
+    yardstick beside it."""
     if not x.is_cuda:
         raise ValueError(f"K4 runs on CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -110,17 +154,43 @@ def conv3x3_affine_cs(x, weight, scale=None, shift=None, *, stride=1):
     a = _affine_vector(scale, cout, x.device, "scale")
     b = _affine_vector(shift, cout, x.device, "shift")
     xc = x.contiguous()
-    w = weight.to(x.dtype).contiguous()
+    nt, fold = conv_tile_config(cin, cout, k, stride)
+    if x.dtype == torch.bfloat16 and not cuda_cores:   # tensor cores
+        w, wpk = None, pack_conv_weight(weight.to(x.dtype), nt, fold)
+    else:
+        w, wpk = weight.to(x.dtype).contiguous(), None
     out = torch.empty((N, cout, (H - 1) // stride + 1, (W - 1) // stride + 1),
                       dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _conv_fn()(
-            xc.data_ptr(), w.data_ptr(), None if a is None else a.data_ptr(),
-            None if b is None else b.data_ptr(), out.data_ptr(), N, cin,
-            cout, H, W, k, stride, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K4 (conv_cs) launch failed: CUDA error {err}")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = (xc.data_ptr(), ptr(w), ptr(wpk), ptr(a), ptr(b), out.data_ptr(),
+            N, cin, cout, H, W, k, stride, _kernel_code(x.dtype, cuda_cores),
+            nt, int(fold))
+    keep = (xc, w, wpk, a, b)   # alive as long as the closure
+
+    def launch():
+        with torch.cuda.device(out.device):
+            err = _conv_fn()(*args,
+                             torch.cuda.current_stream(out.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K4 (conv_cs) launch failed: CUDA error {err}")
+        return keep
+
+    return launch, out
+
+
+def conv3x3_affine_cs(x, weight, scale=None, shift=None, *, stride=1):
+    """K4: ``x`` [N, Cin, H, W], ``weight`` OIHW [Cout, Cin, k, k] with k 3
+    or 1 (SAME padding), ``scale``/``shift`` [Cout] (None: 1 / 0), output
+    stride 1 or 2 -> [N, Cout, ceil(H / stride), ceil(W / stride)] in
+    ``x``'s dtype. A CUDA tensor launches the kernel (bfloat16: tensor
+    cores on :func:`pack_conv_weight`'s layout; float32: CUDA cores), a CPU
+    tensor runs :func:`conv3x3_affine_cs_plain`. Forward only."""
+    if x.device.type == "cpu":
+        return conv3x3_affine_cs_plain(x, weight, scale, shift,
+                                       stride=stride)
+    launch, out = prepare_conv3x3_affine_cs(x, weight, scale, shift,
+                                            stride=stride)
+    launch()
     conv3x3_affine_cs.launches += 1
     return out
 

@@ -60,6 +60,45 @@ def test_k1_matches_plain_bitwise(dev, dtype, M, C, nh):
             wq=p.wq.clone().requires_grad_()), nh)
 
 
+# the four en4 (C, nh) pairs (hd = 32) with R = 81 M not a multiple of the
+# 64-row tile, and heads that straddle the bf16 kernel's 32-channel groups
+# (hd 24 and 3: one block walks every group)
+K1_EN4_CASES = [(2, 96, 3), (4, 192, 6), (2, 384, 12), (2, 768, 24),
+                (2, 96, 4), (2, 48, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,nh", K1_EN4_CASES)
+def test_k1_head_widths_bitwise(dev, dtype, M, C, nh):
+    """K1 at the en4 head widths and at straddling ones, ragged row tiles:
+    equal to its twin bit for bit on dyadic inputs, not all-0 or all-1. The
+    token PSN's threshold sits at 3/8 of a head's width, so the head counts
+    decide the output."""
+    gen = torch.Generator().manual_seed(3 * M + C + nh)
+    g = lambda *s, step=0.125, lo=-1.0, hi=1.0: _grid(  # noqa: E731
+        s, step, lo, hi, gen).to(dev)
+    p = hopper_attn.QKAttnParams(
+        w_in=g(2, 2, step=0.25), b_in=g(2, step=0.25), wq=g(C, C),
+        aq=g(C, step=0.25, lo=0.25, hi=2.0), cq=g(C),
+        w_q=g(2, 2, step=0.25), b_q=g(2, step=0.25), wk=g(C, C),
+        ak=g(C, step=0.25, lo=0.25, hi=2.0), ck=g(C), pe=g(2, 81, C),
+        w_k=g(2, 2, step=0.25), b_k=g(2, step=0.25),
+        w_t=torch.tensor([[0.5, 0.25], [0.25, 0.5]], device=dev),
+        b_t=torch.full((2,), -3 * (C // nh) / 8, device=dev), wp=g(C, C),
+        bp=g(C),
+        ap=g(C), cp=g(C))
+    x = _grid((2, M, 9, 9, C), 0.25, -2.0, 2.0, gen).to(dev, dtype)
+    assert (M * 81) % 64
+    with torch.inference_mode():
+        before = hopper_attn.qk_attn_interior.launches
+        got = hopper_attn.qk_attn_interior(x, p, nh)
+        assert hopper_attn.qk_attn_interior.launches == before + 1
+        want = hopper_attn.qk_attn_interior_plain(x, p, nh)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert 0.0 < got.float().mean().item() < 1.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("affine", [False, True])
 def test_k2_matches_plain_bitwise(dev, dtype, affine):
@@ -256,6 +295,30 @@ def test_k4_matches_plain_bitwise(dev, dtype, k, stride, cin, cout):
     with pytest.raises(NotImplementedError):
         hopper_embed.conv3x3_affine_cs(x, w.clone().requires_grad_(),
                                        stride=stride)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,cin,cout", K4_CASES)
+def test_k4_wide_frame_bitwise(dev, dtype, k, stride, cin, cout):
+    """K4 on a 21x200 frame: a width that is a multiple of 8 (the bf16
+    kernel's 16-byte copies and stores) but not of its 64-column tile, and a
+    height that is not a multiple of its 4-row tile; equal to the twin bit
+    for bit on dyadic inputs."""
+    gen = torch.Generator().manual_seed(100 + k + 3 * stride + cin)
+    x = _grid((2, cin, 21, 200), 0.25, -2.0, 2.0, gen).to(dev, dtype)
+    w = _grid((cout, cin, k, k), 0.125, -1.0, 1.0, gen).to(dev, dtype)
+    a = _grid((cout,), 0.25, 0.25, 2.0, gen).to(dev)
+    b = _grid((cout,), 0.25, -1.0, 1.0, gen).to(dev)
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=False):
+        before = hopper_embed.conv3x3_affine_cs.launches
+        got = hopper_embed.conv3x3_affine_cs(x, w, a, b, stride=stride)
+        assert hopper_embed.conv3x3_affine_cs.launches == before + 1
+        want = hopper_embed.conv3x3_affine_cs_plain(x, w, a, b,
+                                                    stride=stride)
+        torch.cuda.synchronize()
+        assert got.shape == (2, cout, -(-21 // stride), -(-200 // stride))
+        assert torch.equal(got, want)
+        assert want.abs().max() > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
