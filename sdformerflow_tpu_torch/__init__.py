@@ -5,8 +5,10 @@ its module tree file for file and keeps its public layouts (time-major,
 channels-last ``[T, B, H, W, C]``) at module boundaries. It imports ``torch``
 and never ``jax``.
 
-Ported so far: the SDformerFlow-en4 eval forward behind
-:class:`sdformerflow_tpu_torch.serving.FlowServer`, with two hand-written
-Hopper kernels on its path (``ops/hopper_attn.py`` in CUDA C++,
-``ops/hopper_psn.py`` in Triton). Importing the package imports nothing else.
+Ported so far: the SDformerFlow-en4 serving forward behind
+:class:`sdformerflow_tpu_torch.serving.FlowServer` (voxel and raw-event
+requests, the fused embed, the s2d head), its train step and trainer, at
+the DSEC and the MDR/MVSEC geometries, with every TPU kernel of the JAX
+package as a hand-written CUDA C++ kernel under ``csrc/`` (wrappers in
+``ops/hopper_*.py``). Importing the package imports nothing else.
 """

@@ -2,14 +2,17 @@
 ``sdformerflow_tpu/models/spiking_swin.py``, in eval and train mode.
 
 Stages run time-major ``[D, B, H, W, C]``. The attention is the spiking-QK
-window attention in the JAX package's pair-local form. In eval mode its
-interior is K1 (``ops/hopper_attn.py``) for a CUDA tensor, its plain twin
-for a CPU tensor. K1 has no backward (nor has the Pallas kernel it
-replaces), so train mode runs the pair-local module form
-(``spiking_swin.py:330-358,371-376``), whose PSN sites are fused PSN sites
-(K2/K2b) like every other. Reference quirks kept: raw row-major refolds in
-the window partition, the shift mask ignored by the QK attention,
-drop-path on the attention branch only.
+window attention in the JAX package's forms, picked by its condition. At an
+even window count, in eval mode the pair-local interior is K1
+(``ops/hopper_attn.py``) for a CUDA tensor, its plain twin for a CPU
+tensor; K1 has no backward (nor has the Pallas kernel it replaces), so
+train mode runs the pair-local module form
+(``spiking_swin.py:330-358,371-376``). At an odd window count both modes
+run the raw-refold module form (``:360-370``). The module forms' PSN sites
+are fused PSN sites (K2/K2b) like every other. Reference quirks kept: raw
+row-major refolds in the window partition and in the raw-refold attention,
+the shift mask ignored by the QK attention, drop-path on the attention
+branch only.
 
 A torch module owns its parameters at construction, so each block is built
 for the stage resolution the config implies (the clamped window decides the
@@ -53,8 +56,11 @@ class _QKBranch(nn.Module):
 
 class SpikingQKWindowAttention3D(nn.Module):
     """Linear-complexity spiking QK attention on time-major windows
-    [2, B_, wh, ww, C]. Eval, PSN, BN, temporal window 2 and an even window
-    count only; anything else raises NotImplementedError."""
+    [2, B_, wh, ww, C], PSN and BN, temporal window 2 (anything else raises
+    NotImplementedError). The form follows the JAX module's condition
+    (``spiking_swin.py:323-331``): at an even window count K1 in eval and
+    the pair-local form in train; at an odd one the raw-refold form in
+    both."""
 
     def __init__(self, dim, window_size, num_heads, cfg: SpikingConfig):
         super().__init__()
@@ -93,17 +99,15 @@ class SpikingQKWindowAttention3D(nn.Module):
             wp=self.proj.weight.t(), bp=self.proj.bias, ap=ap, cp=cp)
 
     def forward(self, x):
+        T, B_, Hw, Ww, C = x.shape
+        if B_ % 2:
+            return self._raw_refold(x)
         if not self.training:
             return fused_qk_attention(x, self.kernel_params(), self.num_heads)
         # train: the pair-local module form; attn_sn is not fired (its
         # output never reaches the loss, so its grads stay None)
-        T, B_, Hw, Ww, C = x.shape
         nh = self.num_heads
         hd = C // nh
-        if T != 2 or B_ % 2:
-            raise NotImplementedError(
-                f"the pair-local attention needs wd == 2 and an even window "
-                f"count, got wd={T}, M={B_}")
         x = self.proj_sn(x)
         q, k = self.q(x), self.k(x)
         att = self.sn2_q(q.reshape(T, B_, Hw, Ww, nh, hd).sum(-1))
@@ -115,6 +119,24 @@ class SpikingQKWindowAttention3D(nn.Module):
             return v.reshape(2, B_ // 2, Hw, Ww, C)
 
         out = torch.cat([regroup(a[0]), regroup(a[1])], dim=1)
+        return self.proj_bn(self.proj(out))
+
+    def _raw_refold(self, x):
+        """The reference's raw-refold form (``spiking_swin.py:360-370``),
+        the JAX package's branch at an odd window count, in eval and in
+        train: q keeps its time axis, k folds time into tokens, and the
+        row-major refolds scramble heads as the reference does. attn_sn is
+        not fired, as in the other forms."""
+        T, B_, Hw, Ww, C = x.shape
+        nh = self.num_heads
+        hd = C // nh
+        x = self.proj_sn(x)
+        q = self.q(x).reshape(T, B_, nh, -1, hd)
+        k = self.k(x).reshape(B_, nh, -1, hd)
+        att = self.sn2_q(q.sum(-1, keepdim=True))     # [T, B_, nh, HW, 1]
+        attn = k * att.reshape(B_, nh, -1, 1)         # [B_, nh, T HW, hd]
+        out = attn.reshape(B_, nh, T, Hw, Ww, hd).permute(2, 0, 3, 4, 1, 5)
+        out = out.reshape(T, B_, Hw, Ww, C)
         return self.proj_bn(self.proj(out))
 
 

@@ -1,5 +1,5 @@
 """The channels-second patch-embed kernels: K4 (convolution + affine, CUDA
-C++) and K4a (PSN spikes, K2's Triton kernel), and the fused-embed eval
+C++) and K4a (PSN spikes, K2's CUDA kernel), and the fused-embed eval
 forward they compose.
 
 Replaces the Pallas TPU kernels of ``sdformerflow_tpu/ops/pallas_embed.py``:
@@ -24,8 +24,7 @@ kernels, fed to the network through its ``pre_embedded`` input
 (``training/train_step.py:make_eval_step(fused_embed=True)``).
 
 Dispatch: a CUDA tensor launches the kernel (or the call raises), a CPU
-tensor runs the plain twin. K4 is built, and Triton imported, only when a
-kernel is first launched.
+tensor runs the plain twin. The kernels are built when first launched.
 """
 
 from __future__ import annotations

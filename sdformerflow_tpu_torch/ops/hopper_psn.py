@@ -1,30 +1,18 @@
-"""The fused PSN site: K2 (forward, Triton) and K2b (backward, CUDA C++).
+"""The fused PSN site: K2 (forward) and K2b (backward), CUDA C++ on Hopper.
 
 Replaces the Pallas TPU kernel ``sdformerflow_tpu/ops/pallas_psn.py``:
 ``fused_affine_psn``, a ``jax.custom_vjp`` whose forward ``_fwd_kernel``
 computes ``spike = H(W[T, T] @ (x * scale + shift) + b)`` over the leading
 time axis of ``x`` viewed as [T, N], and whose backward ``_bwd_kernel``
-recomputes the potential and applies the ATan surrogate. Here
-:class:`FusedAffinePSN` is that VJP: K2 forward, K2b backward, the small
-parameter reductions in PyTorch between them, as they were in XLA. Every
-PSN site of the port goes through :func:`affine_psn`.
-
-K2, what bounds it on H100: memory. Each column reads T values and writes T
-spikes with ~T^2 FMAs in between (~10 FMA per byte in bf16, far below the
-card's ~295 operations per byte), so the kernel is one pass at device
-bandwidth. The design: a program owns BLOCK columns; for each output step
-t it accumulates ``b[t] + sum_s W[t, s] * x[s]`` over the T input rows with
-both loops unrolled by ``tl.static_range`` (the repeated row loads hit L1),
-applying the per-channel affine of the channels-last layout (channel =
-column % C) as the rows are read, and stores 0/1 in the input's dtype. All
-work is 1-D per column: a first version that reduced a [T, BLOCK] tile
-across threads was 16x slower in bf16 on the card (PERF.md). Nothing but
-x, the spikes and the T x T weights touches device memory.
-
-K2b (``csrc/psn_bwd.cu``, its source note says what bounds it) recomputes
-the potential in K2's order and writes ``gh = g * ATan'(h)`` (float32) and
-``dx = scale * W^T gh`` (x's dtype) in one pass; the forward saves only x
-and the parameters, as ``_fused_fwd`` saves its residuals.
+recomputes the potential and applies the ATan surrogate, with the
+parameter reductions left to XLA. Here :class:`FusedAffinePSN` is that VJP:
+K2 forward, K2b backward. Both kernels live in one source,
+``csrc/psn.cu``, which shares the potential's multiply-add order between
+them and says what bounds them and what the design does about it. K2b
+returns the whole VJP (dx, dW, db, dscale, dshift) from one pass over x and
+the cotangent; the forward saves only x and the parameters, as
+``_fused_fwd`` saves its residuals. Every PSN site of the port goes through
+:func:`affine_psn`.
 
 K2's kernel also serves the two other TPU forms of the same function,
 which differ from ``_fwd_kernel`` only in their block layout (a PSN mixes
@@ -36,8 +24,7 @@ channels-second [T, C, H, W]), both with no affine, each through
 
 Dispatch: a CUDA tensor launches the kernels (or the call raises), a CPU
 tensor runs the plain twins :func:`psn_spike`, :func:`psn_spike_tm_plain`
-and :func:`psn_backward_plain`. Triton is imported, and K2b built, only
-when a kernel is launched.
+and :func:`psn_backward_plain`. The kernels are built when first launched.
 """
 
 from __future__ import annotations
@@ -49,12 +36,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..kernel_build import import_triton, load_cuda_library
+from ..kernel_build import load_cuda_library
 from .neurons import psn_neuron
 from .surrogate import surrogate_grad, surrogate_key
-
-BLOCK = 1024
-NUM_WARPS = 8
 
 
 def _affine(x2, scale, shift, channels):
@@ -77,95 +61,126 @@ def psn_spike(x_seq, weight, bias, *, scale=None, shift=None):
     return psn_neuron(xa, weight, bias).to(x_seq.dtype)
 
 
-# triton.language, bound by _kernel() at the first launch: the kernel below
-# is compiled by triton.jit, which resolves ``tl`` in this module's globals
-tl = None
+# dtype codes of csrc/psn.cu: x, g, dx and the spikes; W and b
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_STEPS = 16   # the time steps csrc/psn.cu is instantiated for
 
-
-def _psn_fwd(x_ptr, w_ptr, b_ptr, scale_ptr, shift_ptr, out_ptr, N, C,
-             T: tl.constexpr, BLOCK_N: tl.constexpr, HAS_AFFINE: tl.constexpr):
-    offs = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
-    mask = offs < N
-    if HAS_AFFINE:
-        ch = offs % C
-        sc = tl.load(scale_ptr + ch, mask=mask, other=0.0)
-        sh = tl.load(shift_ptr + ch, mask=mask, other=0.0)
-    for t in tl.static_range(T):
-        h = tl.zeros([BLOCK_N], tl.float32) + tl.load(b_ptr + t)
-        for s in tl.static_range(T):
-            xs = tl.load(x_ptr + s * N + offs, mask=mask,
-                         other=0.0).to(tl.float32)
-            if HAS_AFFINE:
-                xs = xs * sc + sh
-            h += tl.load(w_ptr + t * T + s) * xs
-        tl.store(out_ptr + t * N + offs,
-                 (h >= 0.0).to(out_ptr.dtype.element_ty), mask=mask)
+# the C signatures of csrc/psn.cu's entry points (psn_fwd, psn_bwd,
+# psn_bwd_workspace), in order; the last argument of the launches is the
+# stream
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_F = ctypes.c_float
+ARGTYPES = {
+    "psn_fwd": [_P] * 6 + [_I64] + [_I] * 5 + [_P],
+    "psn_bwd": [_P] * 9 + [_I64, _I64] + [_I] * 4 + [_F] * 2 + [_P],
+    "psn_bwd_workspace": [_I64] + [_I] * 4,
+}
+RESTYPES = {"psn_fwd": _I, "psn_bwd": _I, "psn_bwd_workspace": _I64}
 
 
 @functools.cache
-def _kernel():
-    global tl
-    triton = import_triton()
-    import triton.language
-    tl = triton.language
-    return triton, triton.jit(_psn_fwd)
+def _lib():
+    lib = load_cuda_library("psn.cu")
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, RESTYPES[name]
+    return lib
 
 
-def _site_params(x_seq, weight, bias, scale, shift, kernel):
-    """Kernel-ready float32 (W, b, scale, shift); raises on what the
-    kernels do not take."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_site(x_seq, weight, bias, scale, shift, kernel):
+    """Raise on what csrc/psn.cu does not take; returns (T, C, N).
+    Checks dtypes and sizes before the device, so that a CPU tensor tells
+    the same story."""
     T, C = x_seq.shape[0], x_seq.shape[-1]
+    if x_seq.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got "
+                        f"{x_seq.dtype}")
+    if not 1 <= T <= MAX_STEPS:
+        raise ValueError(f"{kernel} takes 1-{MAX_STEPS} time steps, got {T}")
     if weight.shape != (T, T) or bias.numel() != T:
         raise ValueError(f"{kernel}: PSN weight/bias do not match T={T}")
+    if weight.dtype not in _DTYPE_CODES or bias.dtype != weight.dtype:
+        raise TypeError(f"{kernel} takes W and b both float32 or both "
+                        f"bfloat16, got {weight.dtype} and {bias.dtype}")
     if (scale is None) != (shift is None):
         raise ValueError(f"{kernel}: give both scale and shift, or neither")
-    w = weight.to(torch.float32).contiguous()
-    b = bias.to(torch.float32).reshape(T).contiguous()
     if scale is not None:
         if scale.numel() != C or shift.numel() != C:
             raise ValueError(f"{kernel}: scale/shift must have C={C} values")
-        scale = scale.to(torch.float32).reshape(C).contiguous()
-        shift = shift.to(torch.float32).reshape(C).contiguous()
-    if any(t is not None and t.device != x_seq.device
-           for t in (w, b, scale, shift)):
-        raise ValueError(f"{kernel}: parameters must be on the input's "
-                         "device")
-    return w, b, scale, shift
-
-
-def launch_k2(x_seq, weight, bias, *, scale=None, shift=None, out_dtype=None,
-              kernel="K2"):
-    """Launch K2's Triton kernel on a CUDA tensor [T, ...] (per-channel
-    affine on the last axis, or none) and return the 0/1 spikes in
-    ``out_dtype`` (default: the input's). Raises on what it does not take;
-    counts nothing: each entry that launches it keeps its own count."""
+        if scale.dtype != torch.float32 or shift.dtype != torch.float32:
+            raise TypeError(f"{kernel} takes a float32 scale and shift, got "
+                            f"{scale.dtype} and {shift.dtype}")
+    params = [weight, bias] + ([] if scale is None else [scale, shift])
     if not x_seq.is_cuda:
         raise ValueError(f"{kernel} runs on CUDA tensors, got {x_seq.device}")
+    if any(t.device != x_seq.device or not t.is_contiguous() for t in params):
+        raise ValueError(f"{kernel}: parameters must be contiguous, on the "
+                         "input's device")
+    return T, C, x_seq.numel() // T
+
+
+def _launch(kernel, fn, args, device):
+    """Call a csrc/psn.cu entry on ``device``'s current stream; raise if
+    the launch failed."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+
+
+def k2_args(x, weight, bias, scale, shift, out):
+    """The arguments of ``psn_fwd`` before the stream, for contiguous
+    tensors that :func:`prepare_k2` has checked."""
+    T, C = x.shape[0], x.shape[-1]
+    return (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(scale),
+            _ptr(shift), out.data_ptr(), x.numel() // T, T, C,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype],
+            _DTYPE_CODES[out.dtype])
+
+
+def prepare_k2(x_seq, weight, bias, *, scale=None, shift=None,
+               out_dtype=None, kernel="K2"):
+    """Check one K2 launch on CUDA tensors (x [T, ...] with an optional
+    per-channel affine on the last axis, W and b float32 or bfloat16, scale
+    and shift float32) and return ``(launch, out)``: each call of
+    ``launch()`` runs the kernel once into ``out``, the 0/1 spikes in
+    ``out_dtype`` (default: the input's), and raises if the launch fails;
+    it counts nothing. ``chip_smoke.py`` times ``launch``, the kernel
+    alone."""
     out_dtype = out_dtype or x_seq.dtype
-    for name, dt in (("input", x_seq.dtype), ("output", out_dtype)):
-        if dt not in (torch.float32, torch.bfloat16, torch.float16):
-            raise TypeError(f"{kernel} takes float32/bfloat16/float16, got "
-                            f"{name} {dt}")
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"{kernel} writes float32 or bfloat16, got "
+                        f"{out_dtype}")
+    _check_site(x_seq, weight, bias, scale, shift, kernel)
     tensors = [x_seq, weight, bias] + ([] if scale is None
                                        else [scale, shift])
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(f"{kernel} is forward-only: call it under "
                                   "torch.no_grad() or inference_mode()")
-    T = x_seq.shape[0]
-    C = x_seq.shape[-1]
-    w, b, sc, sh = _site_params(x_seq, weight, bias, scale, shift, kernel)
-    if sc is None:
-        sc = sh = b  # unused: HAS_AFFINE is False
     x = x_seq.contiguous()
-    N = x.numel() // T
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    triton, kern = _kernel()
-    with torch.cuda.device(x.device):
-        kern[(triton.cdiv(N, BLOCK),)](
-            x, w, b, sc, sh, out, N, C, T=T, BLOCK_N=BLOCK,
-            HAS_AFFINE=scale is not None,
-            num_warps=NUM_WARPS)
-    return out.reshape(x_seq.shape)
+    args = k2_args(x, weight, bias, scale, shift, out)
+    fn = _lib().psn_fwd
+
+    def launch():
+        _launch(kernel, fn, args, x.device)
+        return x, out   # alive as long as the closure
+
+    return launch, out
+
+
+def launch_k2(x_seq, weight, bias, *, scale=None, shift=None, out_dtype=None,
+              kernel="K2"):
+    """Launch K2's kernel once (:func:`prepare_k2`) and return the spikes.
+    Counts nothing: each entry that launches it keeps its own count."""
+    launch, out = prepare_k2(x_seq, weight, bias, scale=scale, shift=shift,
+                             out_dtype=out_dtype, kernel=kernel)
+    launch()
+    return out
 
 
 def fused_affine_psn(x_seq, weight, bias, *, scale=None, shift=None):
@@ -208,94 +223,17 @@ psn_spike_tm.launches = 0
 
 # ------------------------------------------------------------------ K2b
 
-def psn_backward_plain(x_seq, g, weight, bias, *, scale=None, shift=None,
-                       surrogate="atan", alpha=2.0):
-    """Plain PyTorch twin of K2b (``_fused_bwd``'s kernel outputs): the
-    saved pre-affine input ``x_seq`` [T, ..., C] and the spikes' cotangent
-    ``g`` -> (dx in ``x_seq``'s shape and dtype, gh [T, N] in >= float32).
-    The potential is recomputed exactly as :func:`psn_spike` computes it."""
+def psn_backward_gh(x_seq, g, weight, bias, *, scale=None, shift=None,
+                    surrogate="atan", alpha=2.0):
+    """``gh = g * surrogate'(h)`` [T, N] in >= float32, the potential
+    recomputed exactly as :func:`psn_spike` computes it: what ``_fused_bwd``'s
+    Pallas kernel writes (pallas_psn.py:52) and K2b keeps in registers."""
     T, C = x_seq.shape[0], x_seq.shape[-1]
     cdt = torch.promote_types(x_seq.dtype, torch.float32)
     w = weight.to(cdt)
     xa = _affine(x_seq.reshape(T, -1).to(cdt), scale, shift, C)
     h = w @ xa + bias.to(cdt).reshape(T, 1)
-    gh = g.reshape(T, -1).to(cdt) * surrogate_grad(surrogate)(h, alpha)
-    dx = w.t() @ gh
-    if scale is not None:
-        dx = (dx.reshape(T, -1, C) * scale.to(cdt)).reshape(T, -1)
-    return dx.to(x_seq.dtype).reshape(x_seq.shape), gh
-
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STEPS = 16   # the time steps csrc/psn_bwd.cu is instantiated for
-
-
-@functools.cache
-def _bwd_kernel_fn():
-    fn = load_cuda_library("psn_bwd.cu").psn_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def fused_psn_backward(x_seq, g, weight, bias, *, scale=None, shift=None,
-                       surrogate="atan", alpha=2.0):
-    """(dx, gh) of one PSN site: K2b for CUDA tensors,
-    :func:`psn_backward_plain` for CPU tensors. K2b takes the ATan surrogate
-    only; x and g float32 or bfloat16."""
-    if x_seq.device.type == "cpu":
-        return psn_backward_plain(x_seq, g, weight, bias, scale=scale,
-                                  shift=shift, surrogate=surrogate,
-                                  alpha=alpha)
-    if not x_seq.is_cuda:
-        raise ValueError(f"K2b runs on CUDA tensors, got {x_seq.device}")
-    if surrogate_key(surrogate) != "atan":
-        raise NotImplementedError(f"K2b computes the ATan surrogate, not "
-                                  f"{surrogate!r}")
-    if x_seq.dtype not in _DTYPE_CODES:
-        raise TypeError(f"K2b takes float32 or bfloat16, got {x_seq.dtype}")
-    T, C = x_seq.shape[0], x_seq.shape[-1]
-    if not 1 <= T <= MAX_STEPS:
-        raise ValueError(f"K2b takes 1-{MAX_STEPS} time steps, got {T}")
-    if g.shape != x_seq.shape or g.device != x_seq.device:
-        raise ValueError(f"K2b: cotangent {tuple(g.shape)} on {g.device} "
-                         f"does not match x {tuple(x_seq.shape)}")
-    w, b, sc, sh = _site_params(x_seq, weight, bias, scale, shift, "K2b")
-    x = x_seq.contiguous()
-    gc = g.to(x.dtype).contiguous()
-    N = x.numel() // T
-    dx = torch.empty_like(x)
-    gh = torch.empty((T, N), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _bwd_kernel_fn()(
-            x.data_ptr(), gc.data_ptr(), w.data_ptr(), b.data_ptr(),
-            None if sc is None else sc.data_ptr(),
-            None if sh is None else sh.data_ptr(),
-            dx.data_ptr(), gh.data_ptr(), N, T, C, _DTYPE_CODES[x.dtype],
-            alpha / 2.0, math.pi / 2.0 * alpha,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K2b (psn_bwd) launch failed: CUDA error {err}")
-    fused_psn_backward.launches += 1
-    return dx.reshape(x_seq.shape), gh
-
-
-fused_psn_backward.launches = 0
-
-
-# ------------------------------------------------------- the VJP itself
-
-class PSNImpl(NamedTuple):
-    """The forward and backward a :class:`FusedAffinePSN` site runs."""
-    forward: Callable    # (x, W, b, *, scale, shift) -> spikes
-    backward: Callable   # (x, g, W, b, *, scale, shift, surrogate, alpha)
-    #                      -> (dx, gh)
-
-
-KERNELS = PSNImpl(fused_affine_psn, fused_psn_backward)
-PLAIN = PSNImpl(psn_spike, psn_backward_plain)
+    return g.reshape(T, -1).to(cdt) * surrogate_grad(surrogate)(h, alpha)
 
 
 def _param_grads(x_seq, gh, weight, bias, scale, shift):
@@ -316,6 +254,112 @@ def _param_grads(x_seq, gh, weight, bias, scale, shift):
             dshift.reshape(shift.shape).to(shift.dtype))
 
 
+def psn_backward_plain(x_seq, g, weight, bias, *, scale=None, shift=None,
+                       surrogate="atan", alpha=2.0):
+    """Plain PyTorch twin of K2b, the whole VJP of one site (what
+    ``_fused_bwd`` returns): the saved pre-affine input ``x_seq``
+    [T, ..., C] and the spikes' cotangent ``g`` -> (dx in ``x_seq``'s shape
+    and dtype, dW, db, dscale, dshift in the shapes and dtypes of the
+    parameters; dscale and dshift None with no affine)."""
+    T, C = x_seq.shape[0], x_seq.shape[-1]
+    gh = psn_backward_gh(x_seq, g, weight, bias, scale=scale, shift=shift,
+                         surrogate=surrogate, alpha=alpha)
+    dx = weight.to(gh.dtype).t() @ gh
+    if scale is not None:
+        dx = (dx.reshape(T, -1, C) * scale.to(gh.dtype)).reshape(T, -1)
+    return (dx.to(x_seq.dtype).reshape(x_seq.shape),
+            *_param_grads(x_seq, gh, weight, bias, scale, shift))
+
+
+def k2b_args(x, g, weight, bias, scale, shift, dx, grads, ws, alpha):
+    """The arguments of ``psn_bwd`` before the stream, for contiguous
+    tensors that :func:`prepare_k2b` has checked."""
+    T, C = x.shape[0], x.shape[-1]
+    return (x.data_ptr(), g.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            _ptr(scale), _ptr(shift), dx.data_ptr(), grads.data_ptr(),
+            ws.data_ptr(), ws.numel(), x.numel() // T, T, C,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype], alpha / 2.0,
+            math.pi / 2.0 * alpha)
+
+
+def prepare_k2b(x_seq, g, weight, bias, *, scale=None, shift=None,
+                surrogate="atan", alpha=2.0):
+    """Check one K2b launch on CUDA tensors and return ``(launch, grads)``:
+    each call of ``launch()`` runs the site's backward once (two kernels:
+    the site, then the sums over its blocks) and raises if the launch
+    fails; ``grads`` = (dx, dW, db, dscale, dshift) as
+    :func:`psn_backward_plain` returns them, the reductions float32 (cast to
+    the parameters' dtypes by :func:`fused_psn_backward`). Counts nothing."""
+    if surrogate_key(surrogate) != "atan":
+        raise NotImplementedError(f"K2b computes the ATan surrogate, not "
+                                  f"{surrogate!r}")
+    T, C, N = _check_site(x_seq, weight, bias, scale, shift, "K2b")
+    if g.shape != x_seq.shape or g.device != x_seq.device:
+        raise ValueError(f"K2b: cotangent {tuple(g.shape)} on {g.device} "
+                         f"does not match x {tuple(x_seq.shape)}")
+    x = x_seq.contiguous()
+    gc = g.to(x.dtype).contiguous()
+    affine = scale is not None
+    lib = _lib()
+    n_ws = lib.psn_bwd_workspace(N, T, C, int(affine), _DTYPE_CODES[x.dtype])
+    dx = torch.empty_like(x)
+    grads = torch.empty(T * T + T + (2 * C if affine else 0),
+                        dtype=torch.float32, device=x.device)
+    ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=x.device)
+    args = k2b_args(x, gc, weight, bias, scale, shift, dx, grads, ws, alpha)
+    fn = lib.psn_bwd
+
+    def launch():
+        _launch("K2b", fn, args, x.device)
+        return x, gc, dx, grads, ws   # alive as long as the closure
+
+    dw, db = grads[:T * T].view(T, T), grads[T * T:T * T + T]
+    dscale = grads[T * T + T:T * T + T + C] if affine else None
+    dshift = grads[T * T + T + C:] if affine else None
+    return launch, (dx.reshape(x_seq.shape), dw, db, dscale, dshift)
+
+
+def _like(grad, param):
+    """``grad`` in ``param``'s shape and dtype (no copy when they match)."""
+    if grad is None:
+        return None
+    return grad.reshape(param.shape).to(param.dtype)
+
+
+def fused_psn_backward(x_seq, g, weight, bias, *, scale=None, shift=None,
+                       surrogate="atan", alpha=2.0):
+    """(dx, dW, db, dscale, dshift) of one PSN site: K2b for CUDA tensors,
+    :func:`psn_backward_plain` for CPU tensors. K2b takes the ATan surrogate
+    only; x and g float32 or bfloat16."""
+    if x_seq.device.type == "cpu":
+        return psn_backward_plain(x_seq, g, weight, bias, scale=scale,
+                                  shift=shift, surrogate=surrogate,
+                                  alpha=alpha)
+    launch, (dx, dw, db, dscale, dshift) = prepare_k2b(
+        x_seq, g, weight, bias, scale=scale, shift=shift,
+        surrogate=surrogate, alpha=alpha)
+    launch()
+    fused_psn_backward.launches += 1
+    return (dx, _like(dw, weight), _like(db, bias), _like(dscale, scale),
+            _like(dshift, shift))
+
+
+fused_psn_backward.launches = 0
+
+
+# ------------------------------------------------------- the VJP itself
+
+class PSNImpl(NamedTuple):
+    """The forward and backward a :class:`FusedAffinePSN` site runs."""
+    forward: Callable    # (x, W, b, *, scale, shift) -> spikes
+    backward: Callable   # (x, g, W, b, *, scale, shift, surrogate, alpha)
+    #                      -> (dx, dW, db, dscale, dshift)
+
+
+KERNELS = PSNImpl(fused_affine_psn, fused_psn_backward)
+PLAIN = PSNImpl(psn_spike, psn_backward_plain)
+
+
 class FusedAffinePSN(torch.autograd.Function):
     """``spike = H(W @ (x * scale + shift) + b)`` with the surrogate
     gradient: inputs x [T, ..., C], W [T, T], b [T] or [T, 1], per-channel
@@ -332,11 +376,10 @@ class FusedAffinePSN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x_seq, weight, bias, scale, shift = ctx.saved_tensors
-        dx, gh = ctx.impl.backward(x_seq, g, weight, bias, scale=scale,
-                                   shift=shift, surrogate=ctx.surrogate,
-                                   alpha=ctx.alpha)
-        grads = _param_grads(x_seq, gh, weight, bias, scale, shift)
-        return (dx, *grads, None, None, None)
+        grads = ctx.impl.backward(x_seq, g, weight, bias, scale=scale,
+                                  shift=shift, surrogate=ctx.surrogate,
+                                  alpha=ctx.alpha)
+        return (*grads, None, None, None)
 
 
 def affine_psn(x_seq, weight, bias, *, scale=None, shift=None,

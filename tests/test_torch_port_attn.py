@@ -8,8 +8,12 @@ module).
 - The port's attention module, weights crossed through ``from_jax``, vs the
   flax ``SpikingQKWindowAttention3D`` in float64, atol 1e-12.
 
+- At an odd window count, the port's raw-refold form vs the flax module's
+  raw-refold branch in float64, in eval and in train (gradients included).
+
 Every variable is randomized with numpy (degenerate inits hide wrong
-pairings), at geometries including M not a multiple of 4 and 9x9 windows.
+pairings), at geometries including M not a multiple of 4, odd M, 8x8 and
+9x9 windows.
 """
 
 import jax
@@ -119,13 +123,79 @@ def test_attention_rejects_what_is_not_ported():
     _, tmod, _, x = _case(10, 2, 5, 48, 6, seed=0)
     xt = to_torch(x)
     with torch.no_grad():
-        with pytest.raises(NotImplementedError):
-            tmod(xt[:, :9])                      # odd window count
         with pytest.raises(ValueError, match="CUDA"):
             hopper_attn.qk_attn_interior(xt.float(), tmod.kernel_params(), 6)
-        tmod.train()                             # the pair-local train form
-        with pytest.raises(NotImplementedError):
-            tmod(xt[:, :9])                      # odd window count
+        with pytest.raises(NotImplementedError):   # K1's own contract
+            hopper_attn.qk_attn_interior_plain(xt[:, :9],
+                                               tmod.kernel_params(), 6)
     with pytest.raises(NotImplementedError):
         SpikingQKWindowAttention3D(48, (1, 2, 5), 6,
                                    SpikingConfig(neuron_type="psn"))
+
+
+# odd window counts: the raw-refold form (M, wh, ww, C, nh)
+ODD_GEOMETRIES = [(9, 2, 5, 48, 6), (3, 8, 8, 32, 2)]
+
+
+@pytest.mark.parametrize("geo", ODD_GEOMETRIES)
+def test_odd_window_count_matches_flax_raw_refold_f64(geo):
+    """At an odd M the JAX module takes its raw-refold branch in eval; the
+    port's module runs the same form, float64."""
+    jmod, tmod, variables, x = _case(*geo, seed=3 * sum(geo))
+    with jax.enable_x64(True):
+        want, _ = jmod.apply(jax.tree_util.tree_map(jnp.asarray, variables),
+                             jnp.asarray(x), None, False)
+    with torch.no_grad():
+        got = tmod(to_torch(x))
+    assert got.dtype == torch.float64
+    assert np.abs(np.asarray(want)).max() > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("geo", ODD_GEOMETRIES)
+def test_odd_window_count_train_matches_flax_f64(geo):
+    """The raw-refold form in train mode vs the flax module in train mode:
+    output, BN statistics and the gradients of x and of every parameter."""
+    M, wh, ww, C, nh = geo
+    jmod, tmod, variables, x = _case(*geo, seed=5 * sum(geo))
+    proj = np.random.default_rng(sum(geo)).standard_normal(x.shape)
+    with jax.enable_x64(True):
+        jv = jax.tree_util.tree_map(jnp.asarray, variables)
+
+        def loss(params, x_):
+            (y, _), mutated = jmod.apply(
+                {"params": params, "batch_stats": jv["batch_stats"]},
+                x_, None, True, mutable=["batch_stats"])
+            return (y * proj).sum(), (y, mutated["batch_stats"])
+
+        (_, (want_y, want_bs)), (want_g, want_gx) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(jv["params"], jnp.asarray(x))
+    tmod.train()
+    xt = to_torch(x).requires_grad_()
+    y = tmod(xt)
+    (y * to_torch(proj)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               rtol=0, atol=1e-12)
+    gx = np.asarray(want_gx)
+    np.testing.assert_allclose(xt.grad.numpy(), gx, rtol=0,
+                               atol=1e-10 * np.abs(gx).max())
+    after = from_jax({"params": variables["params"],
+                      "batch_stats": jax.tree_util.tree_map(np.asarray,
+                                                            want_bs)}, tmod)
+    for k, v in after.items():
+        if "running" in k:
+            np.testing.assert_allclose(tmod.state_dict()[k].numpy(),
+                                       v.numpy(), rtol=0, atol=1e-12)
+    grads = from_jax({"params": jax.tree_util.tree_map(np.asarray, want_g),
+                      "batch_stats": variables["batch_stats"]}, tmod)
+    # some leaves' true gradients are ~0 (rounding noise of 1e-15): hold
+    # every leaf to 1e-10 of the largest gradient
+    scale = max(np.abs(v.numpy()).max() for k, v in grads.items()
+                if "running" not in k)
+    for name, p in tmod.named_parameters():
+        if name.startswith("attn_sn."):
+            assert p.grad is None       # never fired, as in the other forms
+            continue
+        np.testing.assert_allclose(p.grad.numpy(), grads[name].numpy(),
+                                   rtol=0, atol=1e-10 * scale, err_msg=name)

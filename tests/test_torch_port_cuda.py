@@ -202,31 +202,80 @@ def _psn_site(T, C, dtype, affine, gen, dev, dyadic):
             {k: v.to(dev) for k, v in kw.items()})
 
 
+def _close(got, want, tol):
+    """|got - want| within ``tol`` of ``want``'s largest magnitude."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max() <= tol * want.abs().max()
+
+
+def _k2b_check(dev, x, g, w, b, kw, dtype):
+    """K2b against its twin: dx within 1e-5 of the twin's largest (bf16:
+    one rounding, 2^-7), dW, db, dscale and dshift within 1e-5; a second
+    launch gives the same bits."""
+    before = hopper_psn.fused_psn_backward.launches
+    got = hopper_psn.fused_psn_backward(x, g, w, b, **kw)
+    assert hopper_psn.fused_psn_backward.launches == before + 1
+    again = hopper_psn.fused_psn_backward(x, g, w, b, **kw)
+    want = hopper_psn.psn_backward_plain(x, g, w, b, **kw)
+    torch.cuda.synchronize()
+    dx, dx_p = got[0], want[0]
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert _close(dx, dx_p, 1e-5 if dtype == torch.float32 else 2.0 ** -7)
+    for name, k, a, p in zip(("dW", "db", "dscale", "dshift"), got[1:],
+                             again[1:], want[1:]):
+        if p is None:
+            assert k is None and not kw, name
+            continue
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        assert _close(k, p, 1e-5), name
+        assert torch.equal(k, a), name          # deterministic
+        assert p.abs().max() > 0, name
+    assert torch.equal(got[0], again[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [10, 2])
+@pytest.mark.parametrize("T", [10, 5, 2])
 @pytest.mark.parametrize("affine", [False, True])
 def test_k2b_matches_plain(dev, dtype, T, affine):
-    """gh bitwise on dyadic inputs (the potential is exact, the surrogate
-    rounded in the twin's order); otherwise both outputs within 1e-5 of the
-    twin's largest magnitude (the sums' order differs), dx in bfloat16
-    within one bfloat16 rounding (2^-7 of the largest)."""
+    """The whole site VJP on dyadic and on Gaussian inputs (the sums' order
+    differs from the twin's matrix products)."""
     gen = torch.Generator().manual_seed(T + 2 * affine)
     for dyadic in (True, False):
         x, g, w, b, kw = _psn_site(T, 48, dtype, affine, gen, dev, dyadic)
-        before = hopper_psn.fused_psn_backward.launches
-        dx, gh = hopper_psn.fused_psn_backward(x, g, w, b, **kw)
-        assert hopper_psn.fused_psn_backward.launches == before + 1
-        dx_p, gh_p = hopper_psn.psn_backward_plain(x, g, w, b, **kw)
-        torch.cuda.synchronize()
-        assert dx.dtype == dtype and dx.shape == x.shape
-        assert gh.dtype == torch.float32 and gh.shape == (T, x.numel() // T)
-        if dyadic:
-            assert torch.equal(gh, gh_p)
-        assert (gh - gh_p).abs().max() <= 1e-5 * gh_p.abs().max()
-        dx_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-        assert ((dx.float() - dx_p.float()).abs().max()
-                <= dx_tol * dx_p.float().abs().max())
-        assert gh_p.abs().max() > 0
+        _k2b_check(dev, x, g, w, b, kw, dtype)
+
+
+def _offset(t, k):
+    """``t`` copied into a buffer at an offset of ``k`` elements: contiguous,
+    and misaligned for 16-byte loads when k is not a multiple of 4."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (T, C, element offset, W dtype): ragged channels (C % 4, C % 8), a
+# misaligned base, bfloat16 parameters, T = 16
+RAGGED = [(5, 6, 0, torch.float32), (5, 48, 1, torch.float32),
+          (16, 12, 0, torch.bfloat16), (3, 100, 3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,C,offset,wdtype", RAGGED)
+def test_k2_k2b_scalar_paths(dev, dtype, T, C, offset, wdtype):
+    """K2 bitwise and K2b within tolerance where the kernels load element
+    by element inside the kernel: channels not a multiple of the vector,
+    a misaligned base pointer; W and b in bfloat16."""
+    gen = torch.Generator().manual_seed(T * C + offset)
+    for affine in (False, True):
+        x, g, w, b, kw = _psn_site(T, C, dtype, affine, gen, dev, True)
+        x, g = _offset(x, offset), _offset(g, offset)
+        w, b = w.to(wdtype), b.to(wdtype)
+        with torch.inference_mode():
+            got = hopper_psn.fused_affine_psn(x, w, b, **kw)
+            assert torch.equal(got, hopper_psn.psn_spike(x, w, b, **kw))
+            assert 0.0 < got.float().mean().item() < 1.0
+        _k2b_check(dev, x, g, w, b, kw, dtype)
 
 
 @pytest.mark.parametrize("affine", [False, True])

@@ -1,7 +1,7 @@
 """The port imports torch and never jax: every module of
 ``sdformerflow_tpu_torch`` imports in a fresh interpreter with no jax, flax
 or JAX-package module in ``sys.modules``, and importing starts no kernel
-build (triton, nvcc and g++ are needed only when a kernel or the event
+build (nvcc and g++ are needed only when a kernel or the event
 packer is first called)."""
 
 import subprocess
@@ -24,7 +24,7 @@ PROBE = textwrap.dedent("""
     built = sum(f.cache_info().currsize for f in (
         kernel_build.load_cuda_library, kernel_build.load_host_library,
         native._lib, hopper_attn._kernel_fn, hopper_voxel._kernel_fn,
-        hopper_psn._kernel, hopper_psn._bwd_kernel_fn, hopper_embed._conv_fn))
+        hopper_psn._lib, hopper_embed._conv_fn))
     print(len(names), built, bad, " ".join(names))
 """)
 

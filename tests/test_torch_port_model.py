@@ -29,6 +29,11 @@ GEOMETRIES = {
     "en4_96x128": dict(size=(96, 128), depths=(2, 2, 2, 2),
                        heads=(2, 2, 4, 4), window=(2, 3, 3), num_steps=10,
                        num_bins=10, base=8),
+    # the MDR/MVSEC geometry (T=5, window (2, 8, 8)) cut to 64x64: M = 12
+    # windows at stage 1 (even: K1's twin), M = 3 at stage 2 (odd: the
+    # raw-refold form)
+    "mdr_64x64": dict(size=(64, 64), depths=(1, 1), heads=(2, 2),
+                      window=(2, 8, 8), num_steps=5, num_bins=10, base=8),
 }
 
 

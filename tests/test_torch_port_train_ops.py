@@ -154,32 +154,84 @@ def test_fused_affine_psn_grads_match_pallas_kernel(pallas_outputs, affine):
         assert leaves[3].grad is None
 
 
-def test_psn_backward_plain_matches_fused_bwd(pallas_outputs):
-    """(dx, gh) of the plain twin vs the outputs of the Pallas backward
-    kernel that ``_fused_bwd`` runs, float32."""
+def _psn_site_case(T, C, shape, seed, dtype=np.float32):
+    x = _rand(shape, seed).astype(dtype)
+    g = _rand(shape, seed + 1).astype(dtype)
+    w = _rand((T, T), seed + 2, 0.3).astype(dtype)
+    b = _rand((T, 1), seed + 3, 0.4).astype(dtype)
+    sc = np.random.default_rng(seed + 4).uniform(0.5, 2.0, C).astype(dtype)
+    sh = _rand((C,), seed + 5).astype(dtype)
+    return x, g, w, b, sc, sh
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_psn_backward_plain_matches_fused_bwd(pallas_outputs, affine):
+    """The plain twin's five outputs (dx, dW, db, dscale, dshift) vs what
+    ``_fused_bwd`` returns (its Pallas kernel in interpret mode, the
+    reductions in XLA), float32, within 1e-5 of the largest magnitude; and
+    the twin's gh vs the gh the Pallas kernel writes."""
     T, C = 10, 8
     shape = (T, 1, 4, 9, C)
-    x = _rand(shape, 12).astype(np.float32)
-    g = _rand(shape, 13).astype(np.float32)
-    w = _rand((T, T), 14, 0.3).astype(np.float32)
-    b = _rand((T, 1), 15, 0.4).astype(np.float32)
-    sc = np.random.default_rng(16).uniform(0.5, 2.0, C).astype(np.float32)
-    sh = _rand((C,), 17).astype(np.float32)
+    x, g, w, b, sc, sh = _psn_site_case(T, C, shape, 12)
     N = x.size // T
     with jax.enable_x64(False):
-        res = tuple(jnp.asarray(a) for a in (
-            x.reshape(T, N), w, b, np.tile(sc, N // C)[None],
-            np.tile(sh, N // C)[None]))
-        jdx = j_psn._fused_bwd(2.0, res, jnp.asarray(g.reshape(T, N)))[0]
+        jsc = np.tile(sc, N // C)[None] if affine else np.ones((1, 1),
+                                                               np.float32)
+        jsh = np.tile(sh, N // C)[None] if affine else np.zeros((1, 1),
+                                                                np.float32)
+        res = tuple(jnp.asarray(a) for a in (x.reshape(T, N), w, b, jsc,
+                                             jsh))
+        want = j_psn._fused_bwd(
+            2.0, res, jnp.asarray(g.reshape(T, N)))
         kdx, kgh = (np.asarray(a)[:, :N] for a in pallas_outputs[-1])
-    dx, gh = hopper_psn.psn_backward_plain(
-        to_torch(x), to_torch(g), to_torch(w), to_torch(b), scale=to_torch(sc),
-        shift=to_torch(sh))
+    kw = dict(scale=to_torch(sc), shift=to_torch(sh)) if affine else {}
+    args = (to_torch(x), to_torch(g), to_torch(w), to_torch(b))
+    dx, dw, db, dscale, dshift = hopper_psn.psn_backward_plain(*args, **kw)
+    gh = hopper_psn.psn_backward_gh(*args, **kw)
     assert dx.dtype == torch.float32 and dx.shape == shape
     assert gh.dtype == torch.float32 and gh.shape == (T, N)
-    np.testing.assert_array_equal(kdx, np.asarray(jdx))
+    np.testing.assert_array_equal(kdx, np.asarray(want[0]))
     _close(gh, kgh, 1e-5)
-    _close(dx.reshape(T, N), kdx, 1e-5)
+    _close(dx.reshape(T, N), want[0], 1e-5)
+    assert dw.shape == (T, T) and db.shape == (T, 1)
+    _close(dw, want[1], 1e-5)
+    _close(db, want[2], 1e-5)
+    if affine:
+        assert dscale.shape == dshift.shape == (C,)
+        _close(dscale, np.asarray(want[3]).reshape(-1, C).sum(0), 1e-5)
+        _close(dshift, np.asarray(want[4]).reshape(-1, C).sum(0), 1e-5)
+    else:
+        assert dscale is None and dshift is None
+
+
+@pytest.mark.parametrize("T,affine", [(10, True), (5, True), (2, False)])
+def test_psn_backward_plain_matches_jax_vjp_f64(T, affine):
+    """The twin's five outputs vs ``jax.vjp`` of the plain PSN site
+    ``psn_neuron(x * scale + shift)`` with the ATan surrogate, float64."""
+    C = 6
+    shape = (T, 2, 3, C)
+    x, g, w, b, sc, sh = _psn_site_case(T, C, shape, 40 + T, np.float64)
+    with jax.enable_x64(True):
+        sg = j_surrogate.get_surrogate("atan", 2.0)
+
+        def site(x_, w_, b_, s_, f_):
+            xa = x_ * s_ + f_ if affine else x_
+            return j_neurons.psn_neuron(xa, w_, b_, surrogate_fn=sg)
+
+        _, vjp = jax.vjp(site, *(jnp.asarray(a) for a in (x, w, b, sc, sh)))
+        want = vjp(jnp.asarray(g))
+    kw = dict(scale=to_torch(sc), shift=to_torch(sh)) if affine else {}
+    got = hopper_psn.psn_backward_plain(to_torch(x), to_torch(g),
+                                        to_torch(w), to_torch(b), **kw)
+    assert all(t.dtype == torch.float64 for t in got if t is not None)
+    for name, gt, wt in zip(("dx", "dW", "db", "dscale", "dshift"), got,
+                            want):
+        if gt is None:
+            assert not affine
+            continue
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=0,
+                                   atol=1e-12 * np.abs(wt).max(),
+                                   err_msg=name)
 
 
 def test_train_batchnorm_matches_flax_f64():
