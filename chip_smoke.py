@@ -21,20 +21,26 @@ Phases (any failure exits non-zero):
    timed alone (prepared launches), with its wrapper and beside its first,
    Triton version alone, per shape against the bound;
 4. K3's four entries vs their plain twins at 480x640, 10 and 15 bins, 2^20
-   event slots: bitwise on dyadic events, within 1e-4 on uniform ones;
-   timings beside the bound;
+   event slots: bitwise on dyadic events (uniform and skewed), within
+   1e-4 on three synthetic windows (uniform continuous x/y, uniform
+   integer x/y, and an invented skew: 9/10 of the events on 1/10 of the
+   rows); each timed through its wrapper, alone and in a CUDA graph beside
+   the first, atomic K3 in the same run and the bound, with device time by
+   pass;
 5. the voxel path: a full-width MS_SpikingformerFlowNet_en4 FlowServer
    (288x384, base 96, depths (2,2,6,2), window (2,9,9), T=10, bf16,
    weights from a seeded torch.Generator) answers voxel requests; launch
    counts, flow shapes, latency and the card's busy time per request
    (profiler) are checked and printed;
-6. the raw-events path on the same server: synthetic DSEC-like windows of
+6. the raw-events path on the same server: synthetic windows (DSEC's
+   dtypes, x/y uniform random integers over the frame) of
    0.6-1.0 x 2^20 events at 480x640 (and 4 in the 2^21 bucket) are packed,
    voxelized by K3, center-cropped to 288x384 and run through the forward;
    K3 +1 and K1 +12 launches per request; on exact (dyadic) windows the
    events flow equals the voxel flow of the plain twin's grid bit for bit;
    latency, throughput and the pieces of a request (host pack, H2D, K3,
-   forward) are printed;
+   forward) are printed, with voxelize_batch beside its form before K3's
+   redesign (atomic K3) and the two kernels alone on the same window;
 7. kernel path vs plain path: float32 forwards on the card (TF32 off) with
    the kernels and with the plain twins, at 96x128 and at full width. Each
    kernel launch of the kernel path is held against its plain twin on the
@@ -620,20 +626,29 @@ def k3_entries():
     }
 
 
-def k3_events(torch, gen, dev, bins, exact):
+def k3_events(torch, gen, dev, bins, exact, skew=False):
     """K3_EVENTS event slots over the sensor frame, from one unit before
     to one unit beyond each edge, the last 1/16 padding (valid False).
     Dyadic: x/y/t on a 1/4 grid, t in [0, bins - 1], t_range (0, bins - 1):
-    every weight and every sum is exact. Else uniform, t in [0, 1]."""
+    every weight and every sum is exact. Else uniform, t in [0, 1]. With
+    ``skew``, 9/10 of the events on the middle 1/10 of the rows: an
+    invented layout, not one measured on a real window."""
     n, (h, w) = K3_EVENTS, SENSOR
+    k = 9 * n // 10
     if exact:
         x = dyadic((n,), 0.25, -1.0, w + 1.0, gen, dev, torch.float32)
         y = dyadic((n,), 0.25, -1.0, h + 1.0, gen, dev, torch.float32)
+        if skew:
+            y[:k] = dyadic((k,), 0.25, 0.45 * h, 0.55 * h, gen, dev,
+                           torch.float32)
         t = dyadic((n,), 0.25, 0.0, bins - 1.0, gen, dev, torch.float32)
         t_range = (0.0, bins - 1.0)
     else:
         x = (torch.rand(n, generator=gen) * (w + 2) - 1).to(dev)
-        y = (torch.rand(n, generator=gen) * (h + 2) - 1).to(dev)
+        y = torch.rand(n, generator=gen) * (h + 2) - 1
+        if skew:
+            y[:k] = torch.rand(k, generator=gen) * (0.1 * h) + 0.45 * h
+        y = y.to(dev)
         t = torch.rand(n, generator=gen).sort().values.to(dev)
         t_range = (0.0, 1.0)
     p = torch.randint(0, 2, (n,), generator=gen).float().to(dev)
@@ -641,48 +656,168 @@ def k3_events(torch, gen, dev, bins, exact):
     return (x, y, t, p), valid, t_range
 
 
+def k3_integer_window(torch, dev):
+    """One synthetic window of phase 6 (x/y uniform random integers over
+    the frame, microsecond t), packed by the server's packer into its 2^20
+    bucket; t_range its span."""
+    from sdformerflow_tpu_torch import native
+    win = event_windows(1, 0.6, 1.0, SEED + 12)[0]
+    buf = np.empty((5, K3_EVENTS), np.float32)
+    native.pack_window(win["x"], win["y"], win["t"], win["p"], K3_EVENTS,
+                       t0=0.0, out=buf)
+    ev = tuple(torch.from_numpy(buf[i]).to(dev) for i in range(4))
+    valid = torch.from_numpy(buf[4] != 0).to(dev)
+    return ev, valid, (float(win["t"].min()), float(win["t"].max()))
+
+
+def atomic_k3_fn():
+    """``voxel_scatter_atomic`` of csrc/voxel.cu, the first K3."""
+    import ctypes
+    from sdformerflow_tpu_torch import kernel_build
+    fn = kernel_build.load_cuda_library("voxel.cu").voxel_scatter_atomic
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def prepare_atomic_k3(torch, ev, valid, mode, bins, t_range):
+    """The first K3, kept in csrc/voxel.cu as voxel_scatter_atomic: a
+    memset of the grid, then one float atomic a corner into it. Phase 4's
+    same-run yardstick; no path of the package calls it. Returns
+    ``(launch, out)`` as ``hopper_voxel.prepare_k3`` does."""
+    from sdformerflow_tpu_torch.ops import hopper_voxel as K
+    fn = atomic_k3_fn()
+    (h, w), dev = SENSOR, ev[0].device
+    out = torch.empty((bins, 2, h, w) if mode in ("polarities", "frames")
+                      else (bins, h, w), device=dev)
+    tr = torch.tensor(t_range, dtype=torch.float32, device=dev)
+    args = ([e.data_ptr() for e in ev]
+            + [valid.data_ptr(), tr.data_ptr(), out.data_ptr(),
+               ev[0].numel(), K._MODES[mode], bins, h, w])
+
+    def launch():
+        out.zero_()
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"voxel_scatter_atomic launch failed: CUDA error "
+              f"{err}")
+        return tr, out
+    return launch, out
+
+
+K3_PASSES = {"Memset": "memset", "bin_kernel<false>": "count",
+             "plan_kernel": "plan", "bin_kernel<true>": "scatter",
+             "tile_kernel": "tiles"}
+
+
+def k3_pass_us(torch, launch, n=10):
+    """Device microseconds a call of each of K3's passes, from the
+    profiler's kernel records over ``n`` prepared launches."""
+    from torch.profiler import ProfilerActivity, profile
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        name = next((v for k, v in K3_PASSES.items() if k in e.key), None)
+        if name and us > 0:
+            out[name] = out.get(name, 0.0) + us / n
+    return out
+
+
 def phase_k3(torch, dev):
-    """The four K3 entries vs their plain twins at 480x640, 10 and 15
-    bins, 2^20 event slots: bitwise on dyadic events, within K3_TOL on
-    uniform ones; kernel and twin times beside the bound."""
+    """The four K3 entries vs their plain twins at 480x640, 10 and 15 bins,
+    2^20 event slots: bitwise on dyadic events (uniform and skewed), within
+    K3_TOL on uniform (continuous x/y), integer (x/y uniform random
+    integers) and skewed windows; each timed through its wrapper, alone
+    (prepared launches) and in a CUDA graph, beside the first, atomic K3 in
+    the same run, the twin and the bound."""
+    from sdformerflow_tpu_torch.ops import hopper_voxel as K
     gen = torch.Generator().manual_seed(SEED + 10)
-    rows, max_err, max_rand_err = {}, 0.0, 0.0
+    (h, w), rows = SENSOR, {}
+    max_err = max_rand_err = 0.0
+    integer = k3_integer_window(torch, dev)
     for bins in (10, 15):
-        dy_ev, dy_valid, dy_range = k3_events(torch, gen, dev, bins, True)
-        ev, valid, t_range = k3_events(torch, gen, dev, bins, False)
+        exact = {s: k3_events(torch, gen, dev, bins, True, s)
+                 for s in (False, True)}
+        windows = {"uniform": k3_events(torch, gen, dev, bins, False),
+                   "integer": integer,
+                   "skewed": k3_events(torch, gen, dev, bins, False, True)}
         for kind, (entry, plain, bins_kw, extra) in k3_entries().items():
-            kw = {bins_kw: bins, "height": SENSOR[0], "width": SENSOR[1],
-                  **extra}
-            got = entry(*dy_ev, valid=dy_valid, t_range=dy_range, **kw)
-            want = plain(*dy_ev, valid=dy_valid, t_range=dy_range, **kw)
-            err = (got - want).abs().max().item()
-            check(err == 0.0, f"K3 {kind} bins={bins} dyadic: max|d| {err}")
-            check(want.abs().sum().item() > 0, f"K3 {kind}: all-zero grid")
-            max_err = max(max_err, err)
-            run = lambda f: f(*ev, valid=valid, t_range=t_range, **kw)  # noqa: E731
-            got, want = run(entry), run(plain)
-            d = (got - want).abs()
-            rand_err = d.max().item()
-            check(bool((d <= K3_TOL + K3_TOL * want.abs()).all()),
-                  f"K3 {kind} bins={bins} uniform: max|d| {rand_err}")
-            check(got.abs().sum().item() > 0, f"K3 {kind}: all-zero grid")
-            max_rand_err = max(max_rand_err, rand_err)
-            t_k = cuda_time_ms(lambda: run(entry))
-            t_p = cuda_time_ms(lambda: run(plain))
-            n_valid = int(valid.sum())
-            n_bytes = nbytes(*ev, valid, got)
-            b_ms, by = bound(n_bytes, K3_FLOPS[kind] * n_valid, F32_FLOP_S)
-            rows[(kind, bins)] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                                      bound_by=by, mb=n_bytes / 1e6)
-            log(f"[4] K3 {kind} {bins}x{SENSOR[0]}x{SENSOR[1]}, "
-                f"{K3_EVENTS} slots ({n_valid} valid): dyadic max|d| {err} "
-                f"(bitwise), uniform max|d| {rand_err:.3g}; kernel "
-                f"{t_k:.4f} ms, plain {t_p:.4f} ms; {n_bytes / 1e6:.2f} MB, "
-                f"bound {b_ms:.4f} ms ({by}), kernel at "
-                f"{100 * b_ms / t_k:.1f}% of it")
-    main = rows[("signed", 10)]
+            kw = {bins_kw: bins, "height": h, "width": w, **extra}
+            errs = []
+            for skew, (ev, valid, t_range) in exact.items():
+                got = entry(*ev, valid=valid, t_range=t_range, **kw)
+                want = plain(*ev, valid=valid, t_range=t_range, **kw)
+                err = (got - want).abs().max().item()
+                check(err == 0.0, f"K3 {kind} bins={bins} dyadic skew="
+                      f"{skew}: max|d| {err}")
+                check(want.abs().sum().item() > 0, f"K3 {kind}: all-zero "
+                      f"grid")
+                errs.append(err)
+                max_err = max(max_err, err)
+            tiles = K.k3_tiles(kind, bins, h, w)
+            log(f"[4] K3 {kind} {bins}x{h}x{w}: {tiles.describe()}; dyadic "
+                f"uniform and skewed max|d| {errs} (bitwise)")
+            for name, (ev, valid, t_range) in windows.items():
+                run = lambda f: f(*ev, valid=valid, t_range=t_range,  # noqa: E731
+                                  **kw)
+                got, want = run(entry), run(plain)
+                d = (got - want).abs()
+                rand_err = d.max().item()
+                check(bool((d <= K3_TOL + K3_TOL * want.abs()).all()),
+                      f"K3 {kind} bins={bins} {name}: max|d| {rand_err}")
+                check(got.abs().sum().item() > 0, f"K3 {kind}: all-zero "
+                      f"grid")
+                max_rand_err = max(max_rand_err, rand_err)
+                launch, _ = K.prepare_k3(*ev, mode=kind, num_bins=bins,
+                                         height=h, width=w, valid=valid,
+                                         t_range=t_range)
+                old, old_out = prepare_atomic_k3(torch, ev, valid, kind, bins,
+                                                 t_range)
+                old()
+                d_old = (old_out - want).abs()
+                check(bool((d_old <= K3_TOL + K3_TOL * want.abs()).all()),
+                      f"atomic K3 {kind} bins={bins} {name}: max|d| "
+                      f"{d_old.max().item()}")
+                t_w = cuda_time_ms(lambda: run(entry))
+                t_a, t_g = cuda_time_ms(launch), cuda_graph_ms(launch)
+                t_oa, t_og = cuda_time_ms(old), cuda_graph_ms(old)
+                t_a2 = cuda_time_ms(launch)
+                t_p = cuda_time_ms(lambda: run(plain), iters=5)
+                n_valid = int(valid.sum())
+                n_bytes = nbytes(*ev, valid, got)
+                b_ms, by = bound(n_bytes, K3_FLOPS[kind] * n_valid,
+                                 F32_FLOP_S)
+                passes = (k3_pass_us(torch, launch)
+                          if (kind, bins) == ("signed", 10) else {})
+                if passes:
+                    log(f"[4] K3 signed 10 bins, {name}: device us a call "
+                        f"by pass (profiler, 10 calls): " + ", ".join(
+                            f"{k} {v:.1f}" for k, v in passes.items())
+                        + f"; sum {sum(passes.values()):.1f}")
+                row = dict(ms=t_w, device_ms=min(t_a, t_a2), graph_ms=t_g,
+                           earlier_device_ms=t_oa, earlier_graph_ms=t_og,
+                           plain_ms=t_p, bound_ms=b_ms, bound_by=by,
+                           mb=n_bytes / 1e6, max_abs_err=rand_err,
+                           **{f"{k}_us": v for k, v in passes.items()})
+                rows[f"{kind}/{bins}/{name}"] = row
+                log(f"[4] K3 {kind} {bins} bins, {name} ({n_valid} valid of "
+                    f"{K3_EVENTS}): max|d| {rand_err:.3g}; alone "
+                    f"{t_a:.4f} / {t_a2:.4f} ms, graph {t_g:.4f}, wrapper "
+                    f"{t_w:.4f} (atomic K3 alone {t_oa:.4f}, graph "
+                    f"{t_og:.4f}); plain {t_p:.4f} ms; {n_bytes / 1e6:.2f} "
+                    f"MB, bound {b_ms:.4f} ms ({by}): graph at "
+                    f"{100 * b_ms / t_g:.1f}% of it (atomic K3 "
+                    f"{100 * b_ms / t_og:.1f}%)")
+    main = rows["signed/10/uniform"]
     return dict(main, max_abs_err=max_err, uniform_max_abs_err=max_rand_err,
-                rows=rows)
+                tiles=K.k3_tiles("signed", 10, h, w).describe(), rows=rows)
 
 
 # ------------------------------------------------------------ phase 5
@@ -765,8 +900,10 @@ def phase_slice(torch, server, hw, card):
 N_WINDOWS = 16    # distinct synthetic windows, cycled through
 
 
-def dsec_windows(n, lo, hi, seed):
-    """Synthetic DSEC-like windows at 480x640: uint16 x/y, int64
+def event_windows(n, lo, hi, seed):
+    """Synthetic windows at 480x640 in DSEC's dtypes, not its layout:
+    uint16 x/y uniform random integers over the frame (no real window's
+    rows or columns), int64
     microsecond t sorted over 100 ms, uint8 p; lo..hi x 2^20 events."""
     rng = np.random.default_rng(seed)
     out = []
@@ -778,6 +915,34 @@ def dsec_windows(n, lo, hi, seed):
             "t": np.sort(rng.integers(0, 100_000, m, dtype=np.int64)),
             "p": rng.integers(0, 2, m, dtype=np.uint8)})
     return out
+
+
+def atomic_voxelize_batch(torch, events, *, num_bins, height, width):
+    """``voxelize_batch`` as it was before K3's redesign, over the first,
+    atomic K3: the valid span by two masked reductions, then a row at a
+    time the wrapper's checks, a [2] stack of the span, a zeroed grid and
+    one launch, then a torch.stack of the rows. Phase 6's same-run
+    yardstick; no path of the package calls it."""
+    from sdformerflow_tpu_torch.ops import hopper_voxel as K
+    fn = atomic_k3_fn()
+    valid, t = events["valid"], events["t"]
+    span = torch.stack([torch.where(valid, t, float("inf")).amin(dim=-1),
+                        torch.where(valid, t, float("-inf")).amax(dim=-1)],
+                       dim=-1)
+    grids = []
+    for b in range(t.shape[0]):
+        ev = [events[k][b] for k in "xytp"]
+        dev, n = K._check_events(*ev, valid[b])
+        tr = torch.stack((span[b, 0], span[b, 1]))
+        out = torch.zeros((num_bins, height, width), device=dev)
+        err = fn(*(e.data_ptr() for e in ev), valid[b].data_ptr(),
+                 tr.data_ptr(), out.data_ptr(), n, K._MODES["signed"],
+                 num_bins, height, width,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"voxel_scatter_atomic launch failed: CUDA error "
+              f"{err}")
+        grids.append(out)
+    return torch.stack(grids)
 
 
 def dyadic_window(rng, bins, m):
@@ -803,8 +968,8 @@ def phase_events(torch, dev, server, card):
                                                             voxelize_batch)
     bins = server._num_bins
     crop = server._crop
-    windows = dsec_windows(N_WINDOWS, 0.6, 1.0, SEED + 8)
-    big = dsec_windows(4, 1.1, 1.9, SEED + 9)       # the 2^21 bucket
+    windows = event_windows(N_WINDOWS, 0.6, 1.0, SEED + 8)
+    big = event_windows(4, 1.1, 1.9, SEED + 9)       # the 2^21 bucket
     server.warmup(K3_EVENTS)
     server.warmup(2 * K3_EVENTS)
     hopper_attn.qk_attn_interior.launches = 0
@@ -882,19 +1047,47 @@ def phase_events(torch, dev, server, card):
     vox = dict(num_bins=bins, height=SENSOR[0], width=SENSOR[1])
     with torch.inference_mode():
         k3_ms = cuda_time_ms(lambda: voxelize_batch(ev, **vox))
-        cropped = center_crop(voxelize_batch(ev, **vox), crop).contiguous()
+        old_ms = cuda_time_ms(lambda: atomic_voxelize_batch(torch, ev,
+                                                            **vox))
+        grid = voxelize_batch(ev, **vox)
+        old = atomic_voxelize_batch(torch, ev, **vox)
+        d = (grid - old).abs()
+        check(bool((d <= K3_TOL + K3_TOL * old.abs()).all()),
+              f"voxelize_batch vs its atomic-K3 form: max|d| "
+              f"{d.max().item()}")
+        cropped = center_crop(grid, crop).contiguous()
         fwd_ms = cuda_time_ms(lambda: server._step(cropped), iters=10)
+    # the kernels alone on the same row: the kernel's share of the gain
+    row, valid0 = [ev[k][0] for k in "xytp"], ev["valid"][0]
+    launch, _ = hopper_voxel.prepare_k3(
+        *row, mode="signed", valid=valid0, valid_span=True, **vox)
+    span = (float(row[2][valid0].min()), float(row[2][valid0].max()))
+    old_launch, _ = prepare_atomic_k3(torch, row, valid0, "signed", bins,
+                                      span)
+    k3_alone_ms, atomic_alone_ms = cuda_time_ms(launch), cuda_time_ms(
+        old_launch)
     dev_ms = device_ms_per_call(torch, lambda: server.infer(windows[0]), 8)
     pieces = dict(pack_ms=float(np.median(pack_ms)),
                   pack_sorted_ms=float(np.median(sorted_ms)),
-                  h2d_ms=h2d_ms, k3_ms=k3_ms, forward_ms=fwd_ms)
+                  h2d_ms=h2d_ms, k3_ms=k3_ms, forward_ms=fwd_ms,
+                  voxelize_atomic_ms=old_ms, k3_alone_ms=k3_alone_ms,
+                  atomic_alone_ms=atomic_alone_ms)
     log(f"[6] per request ({len(windows[0]['x'])} events in a "
         f"{buf.shape[-1]} bucket): host pack (pack_window into pinned "
         f"memory) median {pieces['pack_ms']:.2f} ms over {N_WINDOWS} "
         f"windows, pack_window_sorted {pieces['pack_sorted_ms']:.2f} ms; "
         f"H2D {buf.numel() * 4 / 1e6:.1f} MB {h2d_ms:.3f} ms; voxelize_batch "
-        f"(span + K3) {k3_ms:.3f} ms; forward at {crop[0]}x{crop[1]} "
+        f"(K3 with its valid span, in place) {k3_ms:.3f} ms; forward at "
+        f"{crop[0]}x{crop[1]} "
         f"(CUDA events, back-to-back) {fwd_ms:.2f} ms")
+    kernel_share = atomic_alone_ms - k3_alone_ms
+    log(f"[6] voxelize_batch {k3_ms:.4f} ms against {old_ms:.4f} in its "
+        f"form before K3's redesign (masked-reduction span, [2] stack, "
+        f"zeroed grid, atomic K3, torch.stack), same window: gain "
+        f"{old_ms - k3_ms:.4f} ms; the kernels alone {atomic_alone_ms:.4f}"
+        f" (atomic, memset included) -> {k3_alone_ms:.4f} ms: the kernel's "
+        f"share {kernel_share:.4f}, the wrapper's "
+        f"{old_ms - k3_ms - kernel_share:.4f}")
     log("[6] device busy per events request (profiler, 8 requests): "
         + ("not measured: the profiler recorded no kernel" if dev_ms is None
            else f"{dev_ms:.3f} ms, {100 * dev_ms / p50:.1f}% of the p50"))
@@ -2400,7 +2593,10 @@ def main() -> int:
          "launches": evp["k3"], "max_abs_err": k3["max_abs_err"],
          "uniform_max_abs_err": k3["uniform_max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None},
+         "bound_by": k3["bound_by"], "library_ms": None,
+         "device_ms": k3["device_ms"], "graph_ms": k3["graph_ms"],
+         "earlier_device_ms": k3["earlier_device_ms"],
+         "earlier_graph_ms": k3["earlier_graph_ms"], "tiles": k3["tiles"]},
         {"name": "K4 channels-second conv + BN affine (bf16, the 8 "
                  "launches of one fused-embed request)", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/conv_cs.cu",
@@ -2443,6 +2639,9 @@ def main() -> int:
         "events_path": {k: v for k, v in evp.items()
                         if k not in ("k1", "k2", "k3")},
         "f32_ab": ab}))
+    log(json.dumps({"k3": {k: {m: round(v, 5) if isinstance(v, float)
+                                   else v for m, v in r.items()}
+                               for k, r in k3["rows"].items()}}))
     log(json.dumps({"odd_window_count": odd}))
     log(json.dumps({"train": tr}))
     log(json.dumps({"embed": {k: v for k, v in emb.items()

@@ -18,8 +18,9 @@ from ..losses import flow_loss_supervised
 from ..models.spiking_layers import TorchBatchNorm
 from ..models.spiking_swin import SpikingSwinBlock3D
 from ..ops.hopper_embed import fused_embed_forward
-from ..ops.hopper_voxel import voxel_grid_signed_k3
+from ..ops.hopper_voxel import voxel_k3
 from ..ops.normalization import encode_input
+from ..ops.voxel import voxel_grid_signed
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -34,23 +35,32 @@ def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 def voxelize_batch(events, *, num_bins, height, width, presorted=False):
     """Padded event buffers -> signed voxel chunks on the events' device:
     dict(x, y, t, p, valid) of [B, N] tensors (x/y/t/p float32, valid
-    bool) -> [B, num_bins, H, W] float32, through K3 on the card.
+    bool) -> [B, num_bins, H, W] float32, through K3 on the card: one
+    launch a row, which finds its row's span itself and writes straight
+    into its row of the output.
 
     Each row's ``t_range`` is the span of its valid events, so padding
     slots never stretch it. ``presorted`` is accepted for the JAX signature;
-    K3 is order-free and ignores it.
+    K3 sorts on the card and ignores it.
     """
-    valid = events["valid"]
-    t = events["t"]
-    span = torch.stack([torch.where(valid, t, float("inf")).amin(dim=-1),
-                        torch.where(valid, t, float("-inf")).amax(dim=-1)],
-                       dim=-1)                             # [B, 2]
-    return torch.stack([
-        voxel_grid_signed_k3(
-            events["x"][b], events["y"][b], t[b], events["p"][b],
-            num_bins=num_bins, height=height, width=width, valid=valid[b],
-            t_range=span[b], presorted=presorted)
-        for b in range(t.shape[0])])
+    del presorted
+    x, y, t, p, valid = (events[k] for k in ("x", "y", "t", "p", "valid"))
+    if t.device.type == "cpu":
+        span = torch.stack(
+            [torch.where(valid, t, float("inf")).amin(dim=-1),
+             torch.where(valid, t, float("-inf")).amax(dim=-1)], dim=-1)
+        return torch.stack([
+            voxel_grid_signed(x[b], y[b], t[b], p[b], num_bins=num_bins,
+                              height=height, width=width, valid=valid[b],
+                              t_range=span[b])
+            for b in range(t.shape[0])])
+    out = torch.empty((t.shape[0], num_bins, height, width),
+                      dtype=torch.float32, device=t.device)
+    for b in range(t.shape[0]):
+        voxel_k3(x[b], y[b], t[b], p[b], mode="signed", num_bins=num_bins,
+                 height=height, width=width, valid=valid[b], valid_span=True,
+                 out=out[b])
+    return out
 
 
 def center_crop(chunk: torch.Tensor, crop) -> torch.Tensor:

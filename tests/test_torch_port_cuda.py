@@ -132,25 +132,39 @@ K3_ENTRIES = {
 }
 
 
-def _dyadic_events(n, h, w, bins, gen):
+def _dyadic_events(n, h, w, bins, gen, layout="uniform"):
     """x/y on a 1/4 grid, one unit beyond every edge; t on a 1/4 grid in
     [0, bins - 1], so that with t_range (0, bins - 1) every weight and every
-    sum is exact; a padded invalid tail."""
+    sum is exact; a padded invalid tail. ``layout`` "band_edges" puts half
+    the events within a unit of the edges of K3's row bands, "skewed" 9/10
+    of them on the middle 1/10 of the rows."""
     x = _grid((n,), 0.25, -1.0, w + 1.0, gen)
     y = _grid((n,), 0.25, -1.0, h + 1.0, gen)
+    if layout == "band_edges":
+        rows = hopper_voxel.K3_ROWS
+        edges = torch.randint(0, h // rows + 1, (n // 2,), generator=gen)
+        y[: n // 2] = edges * rows + _grid((n // 2,), 0.25, -1.0, 1.0, gen)
+    elif layout == "skewed":
+        k = 9 * n // 10
+        y[:k] = _grid((k,), 0.25, h * 45 // 100, h * 55 // 100, gen)
     t = _grid((n,), 0.25, 0.0, bins - 1.0, gen)
     p = torch.randint(0, 2, (n,), generator=gen).float()
     valid = torch.arange(n) < n - n // 8
     return x, y, t, p, valid
 
 
-@pytest.mark.parametrize("kind", sorted(K3_ENTRIES))
-def test_k3_matches_plain_bitwise(dev, kind):
+@pytest.mark.parametrize("kind,h,w,bins,layout", [
+    (kind, 48, 64, 10, "uniform") for kind in sorted(K3_ENTRIES)] + [
+    (kind, 48, 64, 10, "band_edges") for kind in sorted(K3_ENTRIES)] + [
+    (kind, 96, 128, 10, "skewed") for kind in sorted(K3_ENTRIES)] + [
+    (kind, 60, 346, 10, "uniform") for kind in sorted(K3_ENTRIES)] + [
+    ("polarities", 24, 640, 15, "uniform"),
+    ("frames", 24, 640, 15, "skewed")])
+def test_k3_matches_plain_bitwise(dev, kind, h, w, bins, layout):
     entry, plain, bins_kw, extra = K3_ENTRIES[kind]
     gen = torch.Generator().manual_seed(11)
-    h, w, bins = 48, 64, 10
-    x, y, t, p, valid = (a.to(dev) for a in _dyadic_events(200_000, h, w,
-                                                           bins, gen))
+    x, y, t, p, valid = (a.to(dev) for a in _dyadic_events(
+        200_000, h, w, bins, gen, layout))
     kw = {bins_kw: bins, "height": h, "width": w, "valid": valid,
           "t_range": (0.0, bins - 1.0), **extra}
     before = hopper_voxel.voxel_k3.launches
@@ -161,6 +175,74 @@ def test_k3_matches_plain_bitwise(dev, kind):
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert want.abs().sum() > 0
     assert torch.equal(got, want)
+
+
+# a budget of 4000 bytes holds 2 of a row's planes at W = 346 (the tiles
+# split planes), one of 600 bytes 116 columns of one plane (they split
+# columns, with a scalar head and tail in every other row); skewed windows
+# split their heavy bands into shares as well
+@pytest.mark.parametrize("kind,bins,budget,layout", [
+    ("signed", 10, 4000, "uniform"), ("signed", 10, 600, "skewed"),
+    ("polarities", 15, 4000, "skewed"), ("polarities", 15, 600, "band_edges"),
+    ("v2", 10, 4000, "skewed"), ("v2", 10, 600, "uniform"),
+    ("frames", 15, 4000, "band_edges"), ("frames", 15, 600, "skewed")])
+def test_k3_split_tiles_match_plain_bitwise(dev, kind, bins, budget, layout):
+    _, plain, bins_kw, extra = K3_ENTRIES[kind]
+    h, w = 60, 346
+    tiles = hopper_voxel.k3_tiles(kind, bins, h, w, smem_budget=budget)
+    assert tiles.rows == 1
+    if budget >= 4 * w:
+        assert 1 < tiles.planes < tiles.n_planes and tiles.cols == w
+    else:
+        assert tiles.planes == 1 and tiles.col_slabs == 3
+    gen = torch.Generator().manual_seed(14)
+    x, y, t, p, valid = (a.to(dev) for a in _dyadic_events(
+        200_000, h, w, bins, gen, layout))
+    want = plain(x, y, t, p, **{bins_kw: bins}, height=h, width=w,
+                 valid=valid, t_range=(0.0, bins - 1.0), **extra)
+    out = torch.full(want.shape, float("nan"), device=dev)
+    launch, _ = hopper_voxel.prepare_k3(
+        x, y, t, p, mode=kind, num_bins=bins, height=h, width=w, valid=valid,
+        t_range=(0.0, bins - 1.0), out=out, smem_budget=budget)
+    launch()
+    torch.cuda.synchronize()
+    assert want.abs().sum() > 0
+    assert torch.equal(out, want)
+
+
+def test_voxelize_batch_writes_rows_in_place(dev):
+    """One K3 launch a row, each over its valid span, straight into its row
+    of the batch: equal to the twin bit for bit on exact rows."""
+    from sdformerflow_tpu_torch.training.train_step import voxelize_batch
+    gen = torch.Generator().manual_seed(13)
+    h, w, bins, n = 40, 56, 5, 30_000
+    rows = [_dyadic_events(n, h, w, bins, gen) for _ in range(3)]
+    ev = {k: torch.stack([r[i] for r in rows]).to(dev)
+          for i, k in enumerate("xytp")}
+    # integer t from 2 to 2 + 4 (bins - 1), both ends among the valid events
+    ev["t"] = torch.randint(2, 4 * bins - 1, (3, n), generator=gen).float(
+        ).to(dev)
+    ev["t"][:, :2] = torch.tensor([2.0, 4.0 * bins - 2.0])
+    ev["valid"] = torch.stack([r[4] for r in rows]).to(dev)
+    ev["valid"][1] = False                     # an empty row
+    before = hopper_voxel.voxel_k3.launches
+    got = voxelize_batch(ev, num_bins=bins, height=h, width=w)
+    assert hopper_voxel.voxel_k3.launches == before + 3
+    assert got.shape == (3, bins, h, w) and got.is_contiguous()
+    out = torch.full((3, bins, h, w), float("nan"), device=dev)
+    for b in range(3):
+        view = out[b]
+        hopper_voxel.voxel_k3(
+            ev["x"][b], ev["y"][b], ev["t"][b], ev["p"][b], mode="signed",
+            num_bins=bins, height=h, width=w, valid=ev["valid"][b],
+            valid_span=True, out=view)
+        assert view.data_ptr() == out[b].data_ptr()
+    want = voxelize_batch({k: v.cpu() for k, v in ev.items()},
+                          num_bins=bins, height=h, width=w)
+    torch.cuda.synchronize()
+    assert not torch.isnan(out).any()          # every cell written
+    assert torch.equal(out.cpu(), want) and torch.equal(got.cpu(), want)
+    assert want[0].abs().sum() > 0 and not want[1].any()
 
 
 def test_k3_refuses_what_it_does_not_take(dev):

@@ -23,7 +23,7 @@ PROBE = textwrap.dedent("""
                                             hopper_psn, hopper_voxel)
     built = sum(f.cache_info().currsize for f in (
         kernel_build.load_cuda_library, kernel_build.load_host_library,
-        native._lib, hopper_attn._kernel_fn, hopper_voxel._kernel_fn,
+        native._lib, hopper_attn._kernel_fn, hopper_voxel._lib,
         hopper_psn._lib, hopper_embed._conv_fn))
     print(len(names), built, bad, " ".join(names))
 """)
