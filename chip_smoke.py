@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and train paths once on one NVIDIA H100.
+"""Drive the PyTorch port's serving, train and DSEC evaluation paths once on
+one NVIDIA H100.
 
 Run from the root of the repository, with no arguments:
 
@@ -84,7 +85,28 @@ Phases (any failure exits non-zero):
    count: a bfloat16 eval forward, K1 at the even-M stages and the
    raw-refold attention at stage 4, each K1 and K2 launch held against its
    twin and the flow against the plain path's; and one float32 train step
-   with each K2b launch (T = 5 and T = 2) held against its twin.
+   with each K2b launch (T = 5 and T = 2) held against its twin;
+12. the DSEC evaluation protocol (``eval_dsec.main``) at full en4 width on
+   a DSEC tree written at 480x640 (4 ``valid`` and 2 ``train`` windows of
+   0.6-1.0 x 2^20 events in DSEC's dtypes on 45% of the frame, exact
+   (dyadic) to voxelize, as pickled event lists and as the plain twin's
+   10-bin grids; ~70% valid masks; the valid GT a first pass's flow plus
+   noise, so that no metric saturates), from the seeded en4 weights saved
+   under the reference's state_dict names (``module.`` prefix, skipped
+   keys), bf16: the voxel layout with ``metrics.mask_events`` off (writing
+   the submission PNGs) and on, and the event layout; each run's
+   ``results.json`` has the six metrics over 4 windows, each within 1e-9
+   of float64 numpy formulas written out here, fed the same flows,
+   labels, masks and chunks; K1 12, K2 45 (and K3 1, event layout)
+   launches a batch; the event layout equals the voxel layout, the event
+   mask moves the metrics, the PNGs read back within 1/128 px; evaluation
+   windows/s over 64 windows (the valid split cycled, the first batch
+   left out; host clock, reads included), and a batch split into reading,
+   host-to-device copy and step, with the card's busy time (profiler); the
+   trainer
+   (``train_dsec.main``) 2 float32 steps from each layout of the tree (K2b
+   93 a step at 288x384); ``eval_dsec --ckpt`` and
+   ``FlowServer(ckpt=...)`` on the trainer's checkpoint.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -106,6 +128,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "train_dsec_sdformerflow_en4.yaml")
+VALID_CONFIG = os.path.join(ROOT, "configs", "valid_dsec.yaml")
 SEED = 0
 N_LATENCY = 64     # requests sent one at a time: the latency percentiles
 N_QUEUED = 64      # requests queued at once: the throughput
@@ -2478,6 +2501,594 @@ def phase_odd_m(torch, dev):
                 train_k2b_terms_rel_err=box["terms"], seconds=secs)
 
 
+# ----------------------------------------------------------- phase 12
+# the DSEC evaluation protocol: eval_dsec.main on a DSEC tree at 480x640
+
+DSEC_VALID, DSEC_TRAIN = 4, 2
+DSEC_TIMED = 64                # the timed runs: the valid split cycled
+DSEC_SEQ = "zurich_city_01_a"
+DSEC_T0_US = 49_000_000_000    # an absolute DSEC-like first timestamp
+DSEC_T_STEP_US = 2500          # 36 steps: a 90 ms window
+DSEC_ACTIVE = 0.45             # the share of the frame that sees events
+# the GT of a valid window: the first pass's flow plus noise of magnitude
+# U(0, 4) px where the window has events and U(0, 8) px where it has none
+DSEC_NOISE_PX = (4.0, 8.0)
+# the card's metric sums (float64, as evaluate computes them) against the
+# float64 numpy recompute of the same inputs: summation order only. In
+# float32 (printed for information) acos quantizes small angles: AAE moved
+# by 1.4e-5 of itself on this tree
+DSEC_EVAL_TOL = 1e-9
+DSEC_METRICS = ("AEE", "PE1", "PE2", "PE3", "outlier", "AAE")
+
+
+def active_pixels(torch, rng):
+    """Flat indices of the ``DSEC_ACTIVE`` share of the frame where a smooth
+    random field is highest: blobs, as edges give a real window's events a
+    footprint of part of the frame."""
+    import torch.nn.functional as F
+    field = F.interpolate(torch.from_numpy(rng.normal(size=(1, 1, 15, 20))),
+                          size=SENSOR, mode="bilinear",
+                          align_corners=True)[0, 0].numpy().ravel()
+    return np.flatnonzero(field >= np.quantile(field, 1 - DSEC_ACTIVE))
+
+
+def dsec_window(rng, bins, active):
+    """A window in DSEC's dtypes (uint16 x/y, int64 us t, uint8 p),
+    time-sorted, 0.6-1.0 x 2^20 events at the pixels ``active`` (flat
+    indices), whose grid is exact: integer x/y, t on a 2500 us grid with
+    both ends present."""
+    w = SENSOR[1]
+    m = int(rng.uniform(0.6, 1.0) * K3_EVENTS)
+    k = np.sort(rng.integers(0, 4 * (bins - 1) + 1, m))
+    k[0], k[-1] = 0, 4 * (bins - 1)
+    idx = rng.choice(active, m)
+    return {"x": (idx % w).astype(np.uint16),
+            "y": (idx // w).astype(np.uint16),
+            "t": (DSEC_T0_US + DSEC_T_STEP_US * k).astype(np.int64),
+            "p": rng.integers(0, 2, m).astype(np.uint8)}
+
+
+def write_dsec_tree(torch, dev, root, bins):
+    """The offline preprocessor's DSEC layout at 480x640: per window the
+    raw events (``event_tensors/01lists/left``, a pickled dict), their
+    plain-twin grid (``event_tensors/10bins/left/<seq>``), smooth random
+    GT flow (|v| up to ~20 px; ``write_dsec_gt`` replaces it inside the
+    crop of the valid windows) and a mask (~70% valid); 4 ``valid`` and 2
+    ``train`` windows in the split lists. Returns the event counts and,
+    per window, a [H, W] map of the pixels that see events."""
+    import torch.nn.functional as F
+    from sdformerflow_tpu_torch.ops.voxel import voxel_grid_signed
+    rng = np.random.default_rng(SEED + 120)
+    h, w = SENSOR
+    dirs = {"gt": "gt_tensors", "mask": "mask_tensors",
+            "lists": "sequence_lists", "ev": "event_tensors/01lists/left",
+            "vox": f"event_tensors/{bins:02d}bins/left/{DSEC_SEQ}"}
+    for d in dirs.values():
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    names = [f"{DSEC_SEQ}_{i:06d}.npy" for i in range(DSEC_VALID
+                                                      + DSEC_TRAIN)]
+    n_events, seen = [], []
+    for name in names:
+        active = active_pixels(torch, rng)
+        seen.append(np.zeros(h * w, bool))
+        seen[-1][active] = True
+        seen[-1] = seen[-1].reshape(h, w)
+        ev = dsec_window(rng, bins, active)
+        n_events.append(len(ev["x"]))
+        np.save(os.path.join(root, dirs["ev"], name),
+                np.array([ev], dtype=object))
+        t = torch.from_numpy((ev["t"] - ev["t"][0]).astype(np.float32))
+        grid = voxel_grid_signed(
+            *(torch.from_numpy(ev[k].astype(np.float32)).to(dev)
+              for k in "xy"), t.to(dev),
+            torch.from_numpy(ev["p"].astype(np.float32)).to(dev),
+            num_bins=bins, height=h, width=w,
+            t_range=(0.0, float(t[-1])))
+        np.save(os.path.join(root, dirs["vox"], name), grid.cpu().numpy())
+        coarse = torch.from_numpy(rng.uniform(-14.0, 14.0, (1, 2, 7, 9)))
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=True)[0]
+        np.save(os.path.join(root, dirs["gt"], name),
+                flow.numpy().astype(np.float32))
+        np.save(os.path.join(root, dirs["mask"], name),
+                rng.random((h, w)) < 0.7)
+    write_valid_split(root, names[:DSEC_VALID])
+    with open(os.path.join(root, dirs["lists"], "train_split_seq.csv"),
+              "w") as f:
+        f.write("\n".join(names[DSEC_VALID:]) + "\n")
+    return n_events, names[:DSEC_VALID], seen[:DSEC_VALID]
+
+
+def write_valid_split(root, rows):
+    with open(os.path.join(root, "sequence_lists", "valid_split_seq.csv"),
+              "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_dsec_gt(root, names, preds, seen, crop):
+    """The GT of the valid windows from a first pass, so that the metrics
+    are not saturated as they are for random weights against random GT:
+    inside the crop, the pass's flow plus noise in a random direction of
+    magnitude U(0, 4) px where the window has events and U(0, 8) px where
+    it has none (an event mask then moves the metrics), kept 1e-3 px away
+    from the thresholds (1, 2, 3 px and 5% of the flow's magnitude) so
+    that float32 and float64 put each pixel on the same side."""
+    from sdformerflow_tpu_torch.data.augmentation import center_crop
+    rng = np.random.default_rng(SEED + 122)
+    for name, pred, ev in zip(names, preds, seen):
+        path = os.path.join(root, "gt_tensors", name)
+        gt = np.load(path)
+        _, view, _ = center_crop(gt, gt, gt, crop)
+        _, ev, _ = center_crop(ev, ev, ev, crop)
+        flow = pred[0].cpu().double().numpy()
+        mag = np.hypot(flow[0], flow[1])
+        r = rng.uniform(0.0, 1.0, mag.shape) * np.where(
+            ev, DSEC_NOISE_PX[0], DSEC_NOISE_PX[1])
+        for thr in (1.0, 2.0, 3.0, 0.05 * mag):
+            r = np.where(np.abs(r - thr) < 1e-3, r + 2e-3, r)
+        a = rng.uniform(0.0, 2 * np.pi, mag.shape)
+        view[...] = flow + r * np.stack([np.cos(a), np.sin(a)])
+        np.save(path, gt)
+
+
+@contextlib.contextmanager
+def patched(module, name, make_wrapper):
+    """``module.name`` replaced by ``make_wrapper(original)`` meanwhile."""
+    original = getattr(module, name)
+    setattr(module, name, make_wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def eval_run(torch, argv):
+    """``eval_dsec.main(argv)`` with its metric inputs recorded, its eval
+    step kept and ``evaluate`` timed (host clock) from the end of its first
+    batch, the warm-up, to its results; the launches of K1, K2 and K3
+    counted from 0 over the run. Returns a dict."""
+    import io
+    from sdformerflow_tpu_torch import eval_dsec as E
+    from sdformerflow_tpu_torch.ops import hopper_attn, hopper_psn
+    from sdformerflow_tpu_torch.ops import hopper_voxel
+    rec = {"inputs": [], "steps": []}
+
+    def record_metrics(make):
+        def make_fn(**kw):
+            fn = make(**kw)
+            rec["metric_kw"] = kw
+
+            def run(pred, label, mask, chunk=None):
+                rec["inputs"].append((pred, label, mask, chunk))
+                out = fn(pred, label, mask, chunk)
+                if len(rec["inputs"]) == 1:
+                    torch.cuda.synchronize()
+                    rec["warm"] = (time.perf_counter(), pred.shape[0])
+                return out
+            return run
+        return make_fn
+
+    def keep_step(make):
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+            rec["steps"].append(step)
+            return step
+        return make_step
+
+    def timed(evaluate):
+        def run(*args, **kw):
+            out = evaluate(*args, **kw)
+            t_end, n0 = time.perf_counter(), rec["warm"][1]
+            rec["windows_per_s"] = (out["num_samples"] - n0) / (
+                t_end - rec["warm"][0])
+            return out
+        return run
+
+    hopper_attn.qk_attn_interior.launches = 0
+    hopper_psn.fused_affine_psn.launches = 0
+    hopper_voxel.voxel_k3.launches = 0
+    t0 = time.perf_counter()
+    with patched(E, "make_metrics_fn", record_metrics), \
+            patched(E, "make_eval_step", keep_step), \
+            patched(E, "evaluate", timed), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rec["results"] = E.main(argv)
+    rec["main_s"] = time.perf_counter() - t0
+    rec["launches"] = {"K1": hopper_attn.qk_attn_interior.launches,
+                       "K2": hopper_psn.fused_affine_psn.launches,
+                       "K3": hopper_voxel.voxel_k3.launches}
+    return rec
+
+
+def recompute_numpy(rec):
+    """The metrics of a run recomputed in float64 numpy from the flows,
+    labels, masks and chunks its metrics function received, with the
+    reference's formulas written out here: the footprint of the min-max
+    encoded chunk (the polarity split, the nonzero minimum mapped to 0,
+    a pixel kept where its sum over bins and polarities is not 0), AEE per
+    sample, PE1-3 and outlier (EPE > 3 px and > 5% of the flow's
+    magnitude) batch-global counts over each sample's valid count, AAE in
+    degrees over the batch (cos clipped at 1 - 1e-7) times the batch size;
+    the sums divided by the sample count. Returns (metrics, the share of
+    the GT-valid pixels that the footprint keeps, or None)."""
+    kw = rec["metric_kw"]
+    check(kw["encoding"] == "voxel" and kw["polarity"]
+          and kw["norm_input"] == "minmax" and kw["spike_th"] is None,
+          f"[12] the float64 recompute covers the en4 encoding, not {kw}")
+    sums, n, kept, valid = dict.fromkeys(kw["metric_names"], 0.0), 0, 0, 0
+    sums.update(dict.fromkeys(("PE1", "PE2", "PE3", "outlier"), 0.0))
+    for pred, label, mask, chunk in rec["inputs"]:
+        f = pred.cpu().double().numpy() * kw["flow_scaling"]
+        g = label.cpu().double().numpy()
+        m = mask.cpu().double().numpy()[:, 0]
+        if kw["mask_events"] and chunk is not None:
+            c = chunk.cpu().double().numpy()
+            x = np.stack([np.maximum(c, 0), np.maximum(-c, 0)], axis=2)
+            nz = x != 0
+            lo, hi = x[nz].min(), x[nz].max()
+            enc = np.where(nz, (x - lo) / (hi - lo), 0.0)
+            valid += m.sum()
+            m = m * (enc.sum(axis=(1, 2)) != 0)
+            kept += m.sum()
+        err = np.sqrt(((f - g) ** 2).sum(axis=1)) * m
+        mag = np.sqrt((f ** 2).sum(axis=1)) * m
+        gmag = np.sqrt((g ** 2).sum(axis=1)) * m
+        nv = m.sum(axis=(1, 2)) + 1e-9
+        sums["AEE"] += float(np.sum(err.sum(axis=(1, 2)) / nv))
+        for k, thr in (("PE1", 1.0), ("PE2", 2.0), ("PE3", 3.0)):
+            sums[k] += float(np.sum((err > thr).sum() / nv))
+        sums["outlier"] += float(np.sum(
+            ((err > 3.0) & (err > 0.05 * mag)).sum() / nv))
+        if "AAE" in sums:
+            dot = f[:, 0] * g[:, 0] + f[:, 1] * g[:, 1]
+            cos = np.clip((dot + 1e-7) / (mag * gmag + 1e-7), -1 + 1e-7,
+                          1 - 1e-7)
+            sums["AAE"] += float(np.degrees(
+                (np.arccos(cos) * m).sum() / m.sum()) * f.shape[0])
+        n += f.shape[0]
+    return {k: v / n for k, v in sums.items()}, (kept / valid if valid
+                                                 else None)
+
+
+def float32_sums(rec):
+    """The run's metric inputs through the port's metric code in float32 on
+    the card (the reference's and JAX's precision), for information."""
+    from sdformerflow_tpu_torch.training.evaluate import (MetricsAccumulator,
+                                                          make_metrics_fn)
+    fn, acc = make_metrics_fn(**rec["metric_kw"]), MetricsAccumulator()
+    for parts in rec["inputs"]:
+        acc.append(fn(*(None if p is None else p.float() for p in parts)),
+                   parts[0].shape[0])
+    return acc.results()
+
+
+def eval_split(torch, dev, config, rec, make_dataset, n=8):
+    """Where a batch's time goes: reading (``__getitem__`` + collate, host
+    clock, median over the split), the host-to-device copy and the step
+    with its metrics (CUDA events, back-to-back), and the card's busy time
+    per batch (profiler)."""
+    from sdformerflow_tpu_torch.data.augmentation import center_crop
+    from sdformerflow_tpu_torch.data.dsec import _collate
+    from sdformerflow_tpu_torch.training.evaluate import make_metrics_fn
+    from sdformerflow_tpu_torch.training.train_loop import _to_device
+    ds = make_dataset()
+    read_ms = []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        batch = _collate([ds[i]])
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    h2d_ms = cuda_time_ms(lambda: _to_device(batch, dev), iters=n)
+    b = _to_device(batch, dev)
+    crop = tuple(config["loader"]["crop"])
+    step = rec["steps"][0]
+    fn = make_metrics_fn(**rec["metric_kw"])
+    if "events" in b:
+        chunk = b["events"]
+        _, label, mask = center_crop(b["label"], b["label"], b["mask"], crop)
+    else:
+        chunk, label, mask = center_crop(b["chunk"], b["label"], b["mask"],
+                                         crop)
+    metrics_chunk = None if "events" in b else chunk
+    step_ms = cuda_time_ms(lambda: fn(step(chunk)[-1], label, mask,
+                                      metrics_chunk), iters=n)
+    busy = device_ms_per_call(torch, lambda: step(chunk), n)
+    arrays = [v for k, v in batch.items() if k != "events"] + list(
+        batch.get("events", {}).values())
+    return dict(read_ms=float(np.median(read_ms)), h2d_ms=h2d_ms,
+                step_ms=step_ms, device_ms=busy,
+                h2d_mb=sum(a.nbytes for a in arrays) / 1e6)
+
+
+def dsec_train(torch, argv, TL, P):
+    """``train_dsec.main(argv)`` with each step's loss and K2 / K2b
+    launches recorded."""
+    from sdformerflow_tpu_torch import train_dsec
+    steps = []
+
+    def counted(make):
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+
+            def run(batch):
+                c0 = (P.fused_affine_psn.launches,
+                      P.fused_psn_backward.launches)
+                out = step(batch)
+                steps.append((out["loss"].item(),
+                              P.fused_affine_psn.launches - c0[0],
+                              P.fused_psn_backward.launches - c0[1]))
+                return out
+            run.model = step.model
+            return run
+        return make_step
+
+    t0 = time.perf_counter()
+    with patched(TL, "make_train_step", counted):
+        model, opt = train_dsec.main(argv)
+    return steps, time.perf_counter() - t0, model
+
+
+def phase_dsec_eval(torch, dev, config, state_dict, card):
+    """The port's DSEC evaluation entry (``eval_dsec.main``) on a DSEC tree
+    at 480x640 with the seeded en4 weights as a reference-named ``.pt``:
+    the voxel layout in bf16 with ``metrics.mask_events`` off and on, the
+    event layout (K3 on the card), the submission PNGs, ``--ckpt`` and
+    ``FlowServer(ckpt=...)`` on a trainer checkpoint, and the trainer on
+    the tree in both layouts."""
+    import shutil
+    import yaml
+    from sdformerflow_tpu_torch.data.dsec import (DSECDatasetLite,
+                                                  DSECEventListDataset)
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.serving import FlowServer
+    from sdformerflow_tpu_torch.training import train_loop as TL
+    from sdformerflow_tpu_torch.training.config import (build_configs,
+                                                        load_config,
+                                                        merge_eval_config)
+    from sdformerflow_tpu_torch.training.torch_interop import (
+        to_reference_state_dict)
+    from sdformerflow_tpu_torch.utils.visualization import read_flow_png
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                        "smoke_dsec")
+    shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "dsec")
+    bins = config["data"]["num_frames"]
+    t0 = time.perf_counter()
+    n_events, valid_names, seen = write_dsec_tree(torch, dev, tree, bins)
+    tree_s = time.perf_counter() - t0
+    # the seeded en4 weights under the reference's names, as a
+    # DataParallel checkpoint with the keys the loader skips
+    model = get_model(config["model"]["name"], *build_configs(config))
+    model.load_state_dict(state_dict)
+    ref = {"module." + k: v for k, v in
+           to_reference_state_dict(model).items()}
+    ref["module.sttmultires_unet.encoders.swin3d.patch_embed.head."
+        "norm_layer.norm_layer.num_batches_tracked"] = torch.tensor(0)
+    ref["module.sttmultires_unet.resblocks.0.sn1.spiking_neuron.v"] = \
+        torch.zeros(1)
+    pt = os.path.join(root, "reference_en4.pt")
+    torch.save(ref, pt)
+    del model, ref
+
+    valid_cfg = VALID_CONFIG
+    with open(valid_cfg) as f:
+        eval_raw = yaml.safe_load(f)
+    with open(CONFIG) as f:
+        train_raw = yaml.safe_load(f)
+
+    def write_yaml(name, raw, section, **kw):
+        out = json.loads(json.dumps(raw))
+        out.setdefault(section, {}).update(kw)
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            yaml.safe_dump(out, f)
+        return path
+
+    masked_cfg = write_yaml("valid_masked.yaml", eval_raw, "metrics",
+                            mask_events=True)
+    # data.events_input: an eval config's merge keeps it (its defaults
+    # would reset data.preprocessed)
+    events_train = write_yaml("train_events.yaml", train_raw, "data",
+                              events_input="list")
+    base = ["--eval_config", valid_cfg, "--torch_ckpt", pt, "--path", tree,
+            "--bf16"]
+    # a first pass gives the flows the valid windows' GT is made from
+    first = eval_run(torch, ["--train_config", CONFIG] + base + [
+        "--run_dir", os.path.join(root, "eval_first")])
+    write_dsec_gt(tree, valid_names, [p[0] for p in first["inputs"]], seen,
+                  tuple(config["loader"]["crop"]))
+    del first
+    runs = {
+        "voxel": eval_run(torch, ["--train_config", CONFIG] + base + [
+            "--run_dir", os.path.join(root, "eval_voxel"),
+            "--store_submission"]),
+        "voxel_masked": eval_run(torch, [
+            "--train_config", CONFIG, "--torch_ckpt", pt, "--path", tree,
+            "--bf16", "--eval_config", masked_cfg,
+            "--run_dir", os.path.join(root, "eval_voxel_masked")]),
+        "events": eval_run(torch, ["--train_config", events_train] + base + [
+            "--run_dir", os.path.join(root, "eval_events")]),
+    }
+    for name, rec in runs.items():
+        res = rec["results"]
+        with open(os.path.join(root, f"eval_{name}", "results.json")) as f:
+            check(json.load(f) == res, f"[12] {name}: results.json differs "
+                  "from the returned results")
+        check(set(DSEC_METRICS) <= set(res) and res["num_samples"]
+              == DSEC_VALID and res["num_batches"] == DSEC_VALID
+              and all(np.isfinite(res[k]) for k in DSEC_METRICS),
+              f"[12] {name}: results {res}")
+        want, rec["kept"] = recompute_numpy(rec)
+        f32 = float32_sums(rec)
+        rec["rel_err"], rec["f32_rel_err"] = (
+            {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-300)
+             for k in DSEC_METRICS} for got in (res, f32))
+        check(all(e <= DSEC_EVAL_TOL for e in rec["rel_err"].values()),
+              f"[12] {name}: metrics against the float64 recompute: "
+              f"{rec['rel_err']}")
+        n = DSEC_VALID
+        want_l = {"K1": 12 * n, "K2": 45 * n,
+                  "K3": n if name == "events" else 0}
+        check(rec["launches"] == want_l, f"[12] {name}: launches "
+              f"{rec['launches']}, expected {want_l}")
+        masked = [p[3] is not None for p in rec["inputs"]]
+        check(all(masked) == (name != "events") and any(masked) == all(
+            masked), f"[12] {name}: chunks given to the metrics {masked}")
+    v, vm, e = (runs[k]["results"] for k in ("voxel", "voxel_masked",
+                                             "events"))
+    check(v != vm, "[12] mask_events on and off gave the same results")
+    # the GT's noise: the metrics sit away from 0 and 1, and the event mask
+    # drops the pixels without events, whose noise is twice as large
+    check(1.0 < v["AEE"] < 5.0 and all(0.05 < v[k] < 0.95 for k in (
+        "PE1", "PE2", "PE3", "outlier")), f"[12] voxel: metrics {v} are "
+        "saturated")
+    kept = runs["voxel_masked"]["kept"]
+    check(0.2 < kept < 0.8 and vm["AEE"] < 0.8 * v["AEE"],
+          f"[12] mask_events: the footprint keeps {kept} of the valid "
+          f"pixels, AEE {vm['AEE']} against {v['AEE']} without it")
+    check(e == v, f"[12] event layout {e} != voxel layout {v} on the "
+          "plain twin's grids of the same windows")
+    # the submission PNGs read back within 1/128 px of the flows
+    sub_dir = os.path.join(root, "eval_voxel", "vis", "submission")
+    subs = sorted(os.listdir(sub_dir))
+    check(len(subs) == DSEC_VALID, f"[12] {len(subs)} submission PNGs")
+    png_err = 0.0
+    for name, (pred, *_rest) in zip(subs, runs["voxel"]["inputs"]):
+        back, _ = read_flow_png(os.path.join(sub_dir, name))
+        png_err = max(png_err, float(np.abs(back - pred[0].cpu().numpy())
+                                     .max()))
+    check(png_err < 1 / 128, f"[12] submission PNGs vs the flows: max|d| "
+          f"{png_err}")
+    for name, rec in runs.items():
+        log(f"[12] eval_dsec {name} (bf16, {DSEC_VALID} windows, "
+            f"batch 1): " + ", ".join(f"{k} {rec['results'][k]:.6g}"
+                                      for k in DSEC_METRICS)
+            + "; largest relative difference to the float64 numpy "
+            f"recompute {max(rec['rel_err'].values()):.3g} (the same sums "
+            "in float32, for information: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in rec["f32_rel_err"].items())
+            + f"); launches "
+            f"{rec['launches']}; main {rec['main_s']:.2f} s on {card}")
+    log(f"[12] tree at {SENSOR[0]}x{SENSOR[1]} written in {tree_s:.2f} s "
+        f"({min(n_events)}-{max(n_events)} events a window on "
+        f"{DSEC_ACTIVE:.0%} of the frame); the event footprint keeps "
+        f"{kept:.4f} of the GT-valid pixels; event layout == voxel layout; "
+        f"submission PNGs within {png_err:.3g} px of the flows")
+
+    # the timed runs: the valid split cycled to DSEC_TIMED windows, the
+    # first batch left out as the warm-up
+    write_valid_split(tree, [valid_names[i % DSEC_VALID]
+                             for i in range(DSEC_TIMED)])
+    timed = {}
+    for name, train_cfg in (("voxel", CONFIG), ("events", events_train)):
+        rec = eval_run(torch, ["--train_config", train_cfg] + base + [
+            "--run_dir", os.path.join(root, f"timed_{name}")])
+        res, ref = rec["results"], runs[name]["results"]
+        n = DSEC_TIMED
+        want_l = {"K1": 12 * n, "K2": 45 * n,
+                  "K3": n if name == "events" else 0}
+        check(res["num_samples"] == res["num_batches"] == n
+              and rec["launches"] == want_l, f"[12] timed {name}: "
+              f"{res}, launches {rec['launches']}, expected {want_l}")
+        check(all(abs(res[k] - ref[k]) <= DSEC_EVAL_TOL * abs(ref[k])
+                  for k in DSEC_METRICS), f"[12] timed {name}: {res} is "
+              f"not the {DSEC_VALID}-window run's {ref}")
+        timed[name] = rec["windows_per_s"]
+        log(f"[12] eval_dsec {name} timed (bf16, batch 1, {n} windows: "
+            f"the valid split cycled): {timed[name]:.2f} windows/s over the "
+            f"{n - 1} after the first (host clock from the end of the "
+            f"first batch to the results; the files were just written, so "
+            f"reads hit the page cache) on {card}; results those of the "
+            f"{DSEC_VALID}-window run")
+        del rec
+
+    # where a batch's time goes, each layout
+    merged = merge_eval_config(load_config(CONFIG), load_config(valid_cfg))
+    merged["data"]["path"] = tree
+    merged_ev = json.loads(json.dumps(merged))
+    merged_ev["data"]["events_input"] = "list"
+    split = {
+        "voxel": eval_split(torch, dev, merged, runs["voxel"],
+                            lambda: DSECDatasetLite(merged, "valid")),
+        "events": eval_split(torch, dev, merged_ev, runs["events"],
+                             lambda: DSECEventListDataset(merged_ev,
+                                                          "valid")),
+    }
+    for name, s in split.items():
+        log(f"[12] {name} batch on {card}: read (np.load"
+            + (" + pack_window" if name == "events" else "")
+            + f" + collate) median over {DSEC_TIMED} reads "
+            f"{s['read_ms']:.2f} ms; H2D "
+            f"{s['h2d_mb']:.1f} MB {s['h2d_ms']:.3f} ms; step + metrics "
+            f"{s['step_ms']:.2f} ms (CUDA events, back-to-back); device busy "
+            + ("not measured: the profiler recorded no kernel"
+               if s["device_ms"] is None else f"{s['device_ms']:.3f} ms")
+            + " a batch (profiler)")
+    write_valid_split(tree, valid_names)
+    for rec in runs.values():
+        rec["inputs"].clear()
+        rec["steps"].clear()
+    torch.cuda.empty_cache()
+
+    # the trainer on the tree, both layouts: 2 float32 steps each
+    train = {}
+    for name, cfg_path in (("voxel", CONFIG), ("events", events_train)):
+        run_dir = os.path.join(root, f"train_{name}")
+        steps, wall, model = dsec_train(torch, [
+            "--config", cfg_path, "--path", tree, "--max_steps", "2",
+            "--run_dir", run_dir], TL, P)
+        del model
+        torch.cuda.empty_cache()
+        losses = [s[0] for s in steps]
+        check(len(steps) == 2 and all(np.isfinite(losses)),
+              f"[12] train {name}: steps {steps}")
+        check(all(s[1] == s[2] > 0 for s in steps)
+              and len({s[2] for s in steps}) == 1,
+              f"[12] train {name}: K2 / K2b launches per step {steps}")
+        if name == "voxel":
+            check(steps[0][2] == 93, f"[12] train voxel: K2b launched "
+                  f"{steps[0][2]} times a step, expected 93")
+        train[name] = dict(losses=losses, k2b_per_step=steps[0][2],
+                           seconds=wall)
+        log(f"[12] train_dsec on the tree ({name} layout, f32, TF32 off, "
+            f"2 steps, validation on {DSEC_VALID} windows): losses "
+            f"{losses}, K2 and K2b {steps[0][2]} launches a step, "
+            f"{wall:.1f} s")
+    # a trainer checkpoint through --ckpt and FlowServer(ckpt=...)
+    ckpt = os.path.join(root, "train_voxel", "ckpt")
+    rec = eval_run(torch, ["--train_config", CONFIG, "--eval_config",
+                           valid_cfg, "--ckpt", ckpt, "--path", tree,
+                           "--bf16", "--max_batches", "2", "--run_dir",
+                           os.path.join(root, "eval_ckpt")])
+    res = rec["results"]
+    check(res["num_batches"] == 2 and all(np.isfinite(res[k])
+                                          for k in DSEC_METRICS),
+          f"[12] eval_dsec --ckpt: {res}")
+    with FlowServer(config, ckpt=ckpt, device=dev, bf16=True) as server:
+        hw = tuple(config["loader"]["crop"])
+        flow = server.infer(voxel_requests(1, bins, hw, SEED + 121)[0])
+    check(flow.shape == (2,) + hw and np.isfinite(flow).all(),
+          f"[12] FlowServer(ckpt=...): flow {flow.shape}")
+    del rec
+    shutil.rmtree(root, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[12] eval_dsec --ckpt (trainer checkpoint, 2 batches): AEE "
+        f"{res['AEE']:.6g}; FlowServer(ckpt=...) flow {list(flow.shape)} "
+        f"finite; phase {secs:.1f} s")
+    return dict(
+        metrics={k: {m: r["results"][m] for m in DSEC_METRICS}
+                 for k, r in runs.items()},
+        rel_err_vs_f64={k: max(r["rel_err"].values())
+                        for k, r in runs.items()},
+        float32_rel_err_vs_f64={k: r["f32_rel_err"] for k, r in runs.items()},
+        launches={k: r["launches"] for k, r in runs.items()},
+        windows_per_s=timed, timed_windows=DSEC_TIMED, footprint_kept=kept,
+        main_s={k: r["main_s"] for k, r in runs.items()},
+        split=split, png_max_err=png_err, train=train,
+        events_per_window=n_events, seconds=secs)
+
+
 def main() -> int:
     try:
         import torch
@@ -2535,6 +3146,7 @@ def main() -> int:
         odd = phase_odd_m(torch, dev)
         tr = phase_train(torch, dev, config, state_dict, card)
         emb = phase_embed(torch, dev, config, state_dict, card)
+        dsec = phase_dsec_eval(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2549,12 +3161,15 @@ def main() -> int:
         f"(build {build_s:.1f} s)")
     # launches: the raw-events path's run (phase 6); K1 and K2 also give
     # the voxel path's (phase 5); K2b per train step (phase 9); K4, K4a and
-    # K2c the fused-embed path's counted run (phase 10; no path runs K2c)
+    # K2c the fused-embed path's counted run (phase 10; no path runs K2c);
+    # K1, K2 and K3 also each eval_dsec run's (phase 12, 4 windows)
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
          "replaces": "sdformerflow_tpu/ops/pallas_attn.py:382",
          "launches": evp["k1"], "launches_voxel_path": sl["k1"],
+         "launches_dsec_eval": {k: v["K1"]
+                                for k, v in dsec["launches"].items()},
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
@@ -2565,6 +3180,8 @@ def main() -> int:
          "source": "sdformerflow_tpu_torch/csrc/psn.cu",
          "replaces": "sdformerflow_tpu/ops/pallas_psn.py:80",
          "launches": evp["k2"], "launches_voxel_path": sl["k2"],
+         "launches_dsec_eval": {k: v["K2"]
+                                for k, v in dsec["launches"].items()},
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
@@ -2590,7 +3207,9 @@ def main() -> int:
                  "slots)", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/voxel.cu",
          "replaces": "sdformerflow_tpu/ops/pallas_voxel.py:135",
-         "launches": evp["k3"], "max_abs_err": k3["max_abs_err"],
+         "launches": evp["k3"],
+         "launches_dsec_eval": dsec["launches"]["events"]["K3"],
+         "max_abs_err": k3["max_abs_err"],
          "uniform_max_abs_err": k3["uniform_max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
@@ -2646,6 +3265,7 @@ def main() -> int:
     log(json.dumps({"train": tr}))
     log(json.dumps({"embed": {k: v for k, v in emb.items()
                               if k not in ("k4", "k4a", "k2c")}}))
+    log(json.dumps({"dsec_eval": dsec}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

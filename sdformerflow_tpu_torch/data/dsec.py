@@ -1,21 +1,122 @@
-"""Synthetic DSEC-like datasets and the host batcher, the port's own copy of
-``sdformerflow_tpu/data/dsec.py`` (``SyntheticEventFlowDataset``,
+"""DSEC datasets and the host batcher, the port's own copy of
+``sdformerflow_tpu/data/dsec.py`` (``DSECDatasetLite``,
+``DSECEventListDataset``, ``SyntheticEventFlowDataset``,
 ``SyntheticEventListDataset``, ``_collate``, ``batch_iterator``; host-side
 numpy, the packer is the port's ``native``).
 
 Items are (chunk, mask, label): chunk [bins, H, W] signed voxels (or
 [bins, 2, H, W]) or a dict of padded event buffers, mask [H, W], label
-[2, H, W] flow. The DSEC readers over real files wait for event files in
-the repository.
+[2, H, W] flow.
+
+The readers take the offline preprocessor's tree:
+``{path}/event_tensors/{NN}bins[_pol]/left/<seq>/<seq>_<idx>.npy`` (voxels),
+``{path}/event_tensors/01lists/left/<seq>_<idx>.npy`` (pickled dicts of raw
+events x/y/t/p), ``{path}/gt_tensors/<file>.npy``,
+``{path}/mask_tensors/<file>.npy`` and
+``{path}/sequence_lists/{train,valid}_split_{seq,doubleseq}.csv``.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import Iterator
 
 import numpy as np
 
 from .. import native
+
+
+def _read_split(path: str, file_list: str, suffix: str):
+    with open(os.path.join(path, "sequence_lists", file_list + suffix)) as f:
+        return [row for row in csv.reader(f) if row]
+
+
+def _seq(name: str) -> str:
+    """An item file's sequence: ``thun_00_a_0003.npy`` -> ``thun_00_a``."""
+    return "_".join(name.split("_")[:-1])
+
+
+class DSECDatasetLite:
+    """Preprocessed voxel (or frame) tensors of DSEC: chunk [bins, H, W]
+    (``NNbins``, polarity folded as the sign), [bins, 2, H, W]
+    (``NNbins_pol``, ``loader.polarity: false``) or ``NNframes``
+    (``model.encoding`` other than voxel); with ``data.num_chunks == 2``
+    the two windows of a ``_split_doubleseq.csv`` row concatenated."""
+
+    def __init__(self, config: dict, file_list: str):
+        data_cfg = config["data"]
+        self.path = data_cfg["path"]
+        self.flow_path = os.path.join(self.path, "gt_tensors")
+        self.mask_path = os.path.join(self.path, "mask_tensors")
+        self.encoding = config["model"].get("encoding", "voxel")
+        self.num_frames = data_cfg.get("num_frames", 10)
+        self.num_chunks = data_cfg.get("num_chunks", 1)
+        if self.encoding == "voxel":
+            polarity = config["loader"].get("polarity", True)
+            sub = f"{self.num_frames:02d}bins" + ("" if polarity else "_pol")
+        else:
+            sub = f"{self.num_frames:02d}frames"
+        self.events_path = os.path.join(self.path, "event_tensors", sub,
+                                        "left")
+        self.files = _read_split(self.path, file_list,
+                                 "_split_doubleseq.csv" if self.num_chunks == 2
+                                 else "_split_seq.csv")
+
+    def __len__(self):
+        return len(self.files)
+
+    def _chunk(self, name):
+        return np.load(os.path.join(self.events_path, _seq(name), name),
+                       allow_pickle=True)
+
+    def __getitem__(self, idx):
+        row = self.files[idx]
+        mask = np.load(os.path.join(self.mask_path, row[-1]))
+        label = np.load(os.path.join(self.flow_path, row[-1]))
+        chunk = self._chunk(row[0])
+        if self.num_chunks == 2:
+            chunk = np.concatenate([chunk, self._chunk(row[1])], axis=0)
+        return chunk.astype(np.float32), mask, label.astype(np.float32)
+
+
+class DSECEventListDataset:
+    """DSEC over raw per-window event lists (``event_tensors/01lists/left``:
+    pickled dicts of x/y/t/p, DSEC's uint16/uint16/int64 us/uint8).
+
+    Items are (dict of padded [N] buffers x/y/t/p/valid, mask, label); the
+    events are voxelized on the device by the step. At most ``max_events``
+    events are kept, padded to the next power of two; t is rebased to the
+    first event, which keeps it exact in float32. The events stay in their
+    file's order (the JAX reader's ``presort=False``): K3 groups them by
+    row on the card, so the host sorts nothing."""
+
+    def __init__(self, config: dict, file_list: str,
+                 max_events: int = 1 << 21):
+        self.path = config["data"]["path"]
+        self.flow_path = os.path.join(self.path, "gt_tensors")
+        self.mask_path = os.path.join(self.path, "mask_tensors")
+        self.events_path = os.path.join(self.path, "event_tensors",
+                                        "01lists", "left")
+        self.max_events = max_events
+        self.files = _read_split(self.path, file_list, "_split_seq.csv")
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx):
+        target = self.files[idx][0]
+        mask = np.load(os.path.join(self.mask_path, target))
+        label = np.load(os.path.join(self.flow_path, target))
+        ev = np.load(os.path.join(self.events_path, target),
+                     allow_pickle=True)
+        d = ev[0] if isinstance(ev, np.ndarray) and ev.dtype == object else ev
+        n = min(len(d["x"]), self.max_events)
+        cap = min(1 << max(n - 1, 1).bit_length(), self.max_events)
+        x, y, t, p, valid = native.pack_window(
+            *(np.asarray(d[k][:n]) for k in "xytp"), cap)
+        events = {"x": x, "y": y, "t": t, "p": p, "valid": valid}
+        return events, mask, label.astype(np.float32)
 
 
 class SyntheticEventFlowDataset:

@@ -1,11 +1,13 @@
 """Supervised flow loss and metrics, a mirror of ``sdformerflow_tpu/losses.py``
-(``masked_epe``, ``sequence_loss``, ``flow_loss_supervised``,
-``aee_metrics``). Flow tensors are ``[B, 2, H, W]``, masks ``[B, 1, H, W]``
+(``masked_epe``, the angular, relative and cosine losses,
+``sequence_loss``, ``flow_loss_supervised``, ``aee_metrics``,
+``aae_metric``). Flow tensors are ``[B, 2, H, W]``, masks ``[B, 1, H, W]``
 (or ``[B, H, W]``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -21,6 +23,43 @@ def masked_epe(flow, gt_flow, mask, num_valid_px):
     error = torch.sqrt(((flow - gt_flow) ** 2).sum(dim=1) + 1e-8)
     error = error.reshape(b, -1) * mask.reshape(b, -1)
     return error.sum(dim=1) / (num_valid_px + 1e-9)
+
+
+def _pixel_mask(mask):
+    return mask.squeeze(1) if mask.dim() == 4 else mask
+
+
+def _cosine(flow, gt_flow, epsilon, with_eps_in_mag):
+    """Clipped cosine of the angle between ``flow`` and ``gt_flow`` per
+    pixel, the epsilons placed as the reference places them."""
+    add = epsilon if with_eps_in_mag else 0.0
+    flow_mag = torch.sqrt((flow ** 2).sum(dim=1) + add)
+    gt_mag = torch.sqrt((gt_flow ** 2).sum(dim=1) + add)
+    dot = flow[:, 0] * gt_flow[:, 0] + flow[:, 1] * gt_flow[:, 1]
+    cos = (dot + epsilon) / (flow_mag * gt_mag + epsilon)
+    return cos.clamp(-1.0 + epsilon, 1.0 - epsilon)
+
+
+def angular_loss(flow, gt_flow, mask, num_valid_px, epsilon=1e-8):
+    """Masked mean angular error in radians (the reference's
+    angular_loss_function)."""
+    cos = _cosine(flow, gt_flow, epsilon, with_eps_in_mag=True)
+    return (torch.arccos(cos) * _pixel_mask(mask)).sum() / (
+        num_valid_px + 1e-9)
+
+
+def relative_loss(flow, gt_flow, mask, num_valid_px, epsilon=1e-7):
+    """EPE normalized by the GT magnitude (rel_loss_function)."""
+    error = torch.sqrt(((flow - gt_flow) ** 2).sum(dim=1))
+    gt_mag = torch.sqrt((gt_flow ** 2).sum(dim=1))
+    return ((error * _pixel_mask(mask)) / (gt_mag + epsilon)).sum() / (
+        num_valid_px + 1e-9)
+
+
+def cosine_loss(flow, gt_flow, mask, num_valid_px, epsilon=1e-7):
+    """1 - cosine similarity of the flow directions (cosine_loss_function)."""
+    cos = _cosine(flow, gt_flow, epsilon, with_eps_in_mag=False)
+    return ((1.0 - cos) * _pixel_mask(mask)).sum() / (num_valid_px + 1e-9)
 
 
 def sequence_loss(pred_list, gt_flow, valid, gamma=0.8, max_flow=MAX_FLOW):
@@ -72,3 +111,18 @@ def aee_metrics(pred, gt_flow, mask, flow_scaling=1.0):
             "PE2": (error > 2.0).sum() / (num_valid + 1e-9),
             "PE3": (error > 3.0).sum() / (num_valid + 1e-9),
             "outlier": outliers.sum() / (num_valid + 1e-9)}
+
+
+def aae_metric(pred, gt_flow, mask, flow_scaling=1.0):
+    """Masked mean angular error in degrees (the reference AAE): a scalar
+    over the whole batch, divided by the batch's valid count, ``cos``
+    clipped at +-(1 - 1e-7)."""
+    mask = _pixel_mask(mask)
+    flow = pred * flow_scaling
+    flow_mag = torch.sqrt((flow ** 2).sum(dim=1)) * mask
+    gt_mag = torch.sqrt((gt_flow ** 2).sum(dim=1)) * mask
+    dot = flow[:, 0] * gt_flow[:, 0] + flow[:, 1] * gt_flow[:, 1]
+    cos = ((dot + 1e-7) / (flow_mag * gt_mag + 1e-7)).clamp(-1.0 + 1e-7,
+                                                            1.0 - 1e-7)
+    aae = (torch.arccos(cos) * mask).sum() / mask.sum()
+    return aae * 180.0 / math.pi

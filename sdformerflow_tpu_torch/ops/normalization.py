@@ -1,4 +1,4 @@
-"""Input encoding: polarity split and nonzero min-max normalization.
+"""Input encoding: polarity split and nonzero min-max or std normalization.
 
 Mirror of ``sdformerflow_tpu/ops/normalization.py``. Masked reductions keep
 the encode on the device with no host synchronisation.
@@ -27,6 +27,20 @@ def normalize_nonzero_minmax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, normed, x)
 
 
+def normalize_nonzero_std(x: torch.Tensor) -> torch.Tensor:
+    """Standardize over the nonzero entries only (zeros stay zero), with
+    torch's unbiased ``.std()``; a count of 0 or 1 leaves ``x`` as it is
+    (its std is not > 0)."""
+    mask = x != 0
+    count = mask.sum()
+    mean = torch.where(mask, x, 0.0).sum() / count.clamp(min=1)
+    var = torch.where(mask, (x - mean) ** 2, 0.0).sum() / (count - 1)
+    std = torch.sqrt(var)
+    ok = std > 0
+    normed = torch.where(mask, (x - mean) / torch.where(ok, std, 1.0), x)
+    return torch.where(ok, normed, x)
+
+
 def spike_binarize(x: torch.Tensor, threshold: float) -> torch.Tensor:
     """Above threshold -> 1, below -> 0; values equal to it pass through
     (reference quirk kept by the JAX package)."""
@@ -48,6 +62,8 @@ def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
         chunk = polarity_split(chunk)
     if norm_input == "minmax":
         chunk = normalize_nonzero_minmax(chunk)
+    elif norm_input == "std":
+        chunk = normalize_nonzero_std(chunk)
     elif norm_input is not None:
         raise NotImplementedError(f"norm_input {norm_input!r} is not ported")
     if spike_th is not None:

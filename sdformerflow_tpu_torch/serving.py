@@ -37,6 +37,7 @@ import torch
 
 from . import native
 from .models.registry import get_model
+from .training.checkpoints import restore_checkpoint
 from .training.config import build_configs
 from .training.s2d_embed import s2d_embed_state_dict
 from .training.train_step import make_eval_step
@@ -56,6 +57,9 @@ class FlowServer:
     config: parsed config dict (``training.config.load_config``).
     state_dict: the model's weights (e.g. ``training.from_jax.from_jax``);
         ``None`` keeps the model's initialization.
+    ckpt: a checkpoint directory of the port's trainer
+        (``training/checkpoints.py``), restored into the model alone before
+        the bf16 cast; not together with ``state_dict``.
     device: where the model runs (``"cuda"`` launches the Hopper kernels).
     bf16: run the bf16 inference path (params and activations bf16, BN
         statistics float32) - the deployment path.
@@ -67,13 +71,17 @@ class FlowServer:
     """
 
     def __init__(self, config: dict, state_dict: Optional[dict] = None, *,
-                 device="cuda", bf16: bool = True, max_pending: int = 8,
-                 s2d: bool = False):
+                 ckpt: Optional[str] = None, device="cuda", bf16: bool = True,
+                 max_pending: int = 8, s2d: bool = False):
+        if state_dict is not None and ckpt is not None:
+            raise ValueError("give state_dict or ckpt, not both")
         model_cfg, swin_cfg, spiking_cfg = build_configs(config)
         name = config["model"]["name"]
         model = get_model(name, model_cfg, swin_cfg, spiking_cfg)
         if state_dict is not None:
             model.load_state_dict(state_dict)
+        if ckpt is not None:
+            restore_checkpoint(ckpt, model)
         if s2d:
             s2d_state = s2d_embed_state_dict(model.state_dict())
             model = get_model(name, model_cfg, swin_cfg,

@@ -6,10 +6,11 @@
         [--synthetic] [--max_steps N] [--resume] [--device cpu]
 
 It runs on the CUDA card unless ``--device cpu`` is given, and fails when
-there is no card. ``--synthetic`` trains on seeded synthetic samples at
-the config's ``loader.resolution`` (raw event lists when the config sets
-``data.events_input: list`` or ``data.preprocessed: false``); the DSEC
-readers over real files are not ported yet.
+there is no card. It reads the DSEC tree at ``data.path`` (``--path``) with
+the ``train`` and ``valid`` splits: raw event lists when the config sets
+``data.events_input: list`` or ``data.preprocessed: false``, else voxel
+tensors (``data/dsec.py``). ``--synthetic`` trains on seeded synthetic
+samples at the config's ``loader.resolution`` instead.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import sys
 
 import torch
 
-from .data.dsec import SyntheticEventFlowDataset, SyntheticEventListDataset
+from .data.dsec import (DSECDatasetLite, DSECEventListDataset,
+                        SyntheticEventFlowDataset, SyntheticEventListDataset)
 from .training.config import load_config
 from .training.train_loop import train
 
@@ -28,6 +30,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True)
     ap.add_argument("--run_dir", default="runs/dsec")
+    ap.add_argument("--path", default=None, help="override data.path")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None,
@@ -50,18 +53,21 @@ def main(argv=None):
     config = load_config(args.config)
     if args.lr is not None:
         config["optimizer"]["lr"] = args.lr
-    if not args.synthetic:
-        raise SystemExit("train_dsec: the DSEC readers are not ported yet; "
-                         "pass --synthetic")
+    if args.path:
+        config["data"]["path"] = args.path
     events_mode = (config["data"].get("events_input") == "list"
                    or not config["data"].get("preprocessed", True))
-    res = config["loader"]["resolution"]
-    kw = dict(num_bins=config["model"]["num_bins"], height=res[0],
-              width=res[1], structured=args.structured)
-    cls = SyntheticEventListDataset if events_mode else \
-        SyntheticEventFlowDataset
-    train_ds = cls(num_samples=32, **kw)
-    valid_ds = cls(num_samples=8, seed=999, **kw)
+    if args.synthetic:
+        res = config["loader"]["resolution"]
+        kw = dict(num_bins=config["model"]["num_bins"], height=res[0],
+                  width=res[1], structured=args.structured)
+        cls = SyntheticEventListDataset if events_mode else \
+            SyntheticEventFlowDataset
+        train_ds = cls(num_samples=32, **kw)
+        valid_ds = cls(num_samples=8, seed=999, **kw)
+    else:
+        cls = DSECEventListDataset if events_mode else DSECDatasetLite
+        train_ds, valid_ds = cls(config, "train"), cls(config, "valid")
     return train(config, train_ds, valid_ds, run_dir=args.run_dir,
                  resume=args.resume, max_steps=args.max_steps,
                  device=args.device)

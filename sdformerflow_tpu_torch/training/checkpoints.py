@@ -47,10 +47,11 @@ def latest_epoch(ckpt_dir: str) -> Optional[int]:
     return epochs[-1] if epochs else None
 
 
-def restore_checkpoint(ckpt_dir: str, model, optimizer,
+def restore_checkpoint(ckpt_dir: str, model, optimizer=None,
                        epoch: Optional[int] = None):
-    """Load a checkpoint (the newest by default) into ``model`` and
-    ``optimizer``; returns (step, restored epoch)."""
+    """Load a checkpoint (the newest by default) into ``model`` and, unless
+    it is None (evaluation, serving), ``optimizer``; returns (step,
+    restored epoch)."""
     if epoch is None:
         epoch = latest_epoch(ckpt_dir)
     if epoch is None:
@@ -59,5 +60,6 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer,
     payload = torch.load(_path(ckpt_dir, epoch), map_location=dev,
                          weights_only=True)
     model.load_state_dict(payload["model"])
-    optimizer.load_state_dict(payload["optimizer"])
+    if optimizer is not None:
+        optimizer.load_state_dict(payload["optimizer"])
     return payload["step"], payload["epoch"]

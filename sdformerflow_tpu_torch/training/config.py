@@ -57,6 +57,14 @@ def load_config(path: str) -> dict:
     return combine_entries(cfg)
 
 
+def merge_eval_config(train_cfg: dict, eval_cfg: dict) -> dict:
+    """Overlay an eval-protocol config onto a train config: eval keys win,
+    scalar top-level keys (``experiment:``) too."""
+    merged = copy.deepcopy(train_cfg)
+    _merge(merged, eval_cfg)
+    return merged
+
+
 def combine_entries(config: dict) -> dict:
     """Fold the top-level spiking_neuron section into model."""
     sn = config.pop("spiking_neuron", None)

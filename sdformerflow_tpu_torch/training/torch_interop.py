@@ -1,0 +1,308 @@
+"""Checkpoints under the reference's state_dict names -> the port, and
+back: the port's own copy of the SNN rules of
+``sdformerflow_tpu/training/torch_interop.py``.
+
+A rule maps a reference key (the module tree of
+``MS_SpikingformerFlowNet*``) to a flax variable path and a layout:
+
+- Conv2d weight OIHW -> HWIO; ConvTranspose2d (I, O, kh, kw) ->
+  (kh, kw, I, O); Linear [out, in] -> [in, out];
+- BatchNorm weight/bias -> scale/bias (params), running_mean/var ->
+  mean/var (batch_stats);
+- PSN ``spiking_neuron.weight``/``bias``, PLIF ``w``, positional encodings
+  and relative-position-bias tables pass through.
+
+``convert_state_dict`` gives the flax tree, which ``from_jax`` turns into
+the port's state_dict (whose module tree has the flax names);
+``load_reference_state_dict`` composes the two. The port keeps the
+reference's layouts (``from_jax`` undoes each rule's transform), so
+``to_reference_state_dict``, the inverse, only renames.
+
+Not ported: the ANN and U-Net rules and the GLIF packing (no such model in
+the port).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.spiking_layers import Conv2d, TorchBatchNorm, TorchConvTranspose
+from .from_jax import from_jax
+
+_TRANSFORMS = {
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "deconv": lambda a: a.transpose(2, 3, 0, 1),
+    "linear": lambda a: a.T,
+    "id": lambda a: a,
+}
+
+
+def _norm_rule(torch_prefix: str, flax_prefix: str, direct: bool = False):
+    """BN rules: SpikingNormLayer wraps BatchNorm2d under .norm_layer;
+    'direct' norms (nn.BatchNorm2d used directly) have no extra nesting.
+    The flax SpikingNorm names its BatchNorm 'BatchNorm_0'."""
+    t = torch_prefix + (".{}" if direct else ".norm_layer.{}")
+    f = flax_prefix if direct else flax_prefix + "/BatchNorm_0"
+    return [
+        (t.format("weight"), "params", f + "/scale", "id"),
+        (t.format("bias"), "params", f + "/bias", "id"),
+        (t.format("running_mean"), "batch_stats", f + "/mean", "id"),
+        (t.format("running_var"), "batch_stats", f + "/var", "id"),
+    ]
+
+
+_GLIF_FIELDS = ("alpha", "beta", "gamma", "tau", "v_threshold",
+                "linear_decay", "v_subreset", "conduct")
+
+
+def _neuron_rules(torch_prefix, flax_prefix):
+    rules = [
+        (torch_prefix + ".spiking_neuron.weight", "params",
+         flax_prefix + "/weight", "id"),   # PSN
+        (torch_prefix + ".spiking_neuron.bias", "params",
+         flax_prefix + "/bias", "id"),     # PSN
+        (torch_prefix + ".spiking_neuron.w", "params",
+         flax_prefix + "/w", "id"),        # PLIF
+    ]
+    for fld in _GLIF_FIELDS:               # GLIF
+        rules.append((f"{torch_prefix}.spiking_neuron.{fld}", "params",
+                      f"{flax_prefix}/glif/{fld}", "id"))
+    return rules
+
+
+def _conv_block_rules(t, f, *, has_sn=True, deconv=False, norm_direct=False):
+    """SpikingConv{Encoder,Decoder,...}Layer: Sequential conv + SpikingNorm
+    + neuron."""
+    kind = "deconv" if deconv else "conv"
+    tconv = f"{t}.{'deconv' if deconv else 'conv'}.0"
+    fconv = f"{f}/{'deconv' if deconv else 'conv'}"
+    rules = [
+        (tconv + ".weight", "params", fconv + "/kernel", kind),
+        (tconv + ".bias", "params", fconv + "/bias", "id"),
+    ]
+    rules += _norm_rule(f"{t}.norm_layer", f"{f}/norm", direct=norm_direct)
+    if has_sn:
+        rules += _neuron_rules(f"{t}.sn", f"{f}/sn")
+    return rules
+
+
+def _resblock_rules(t, f):
+    rules = []
+    for c in ("conv1", "conv2"):
+        rules += [(f"{t}.{c}.0.weight", "params", f"{f}/{c}/kernel", "conv"),
+                  (f"{t}.{c}.0.bias", "params", f"{f}/{c}/bias", "id")]
+    for n in ("norm1", "norm2"):
+        rules += _norm_rule(f"{t}.{n}", f"{f}/{n}")
+    for s in ("sn1", "sn2"):
+        rules += _neuron_rules(f"{t}.{s}", f"{f}/{s}")
+    return rules
+
+
+def build_rules(num_stages=4, max_depth=8, num_res=2, num_encoders=4,
+                pe_res=2) -> list:
+    """The rule list of the MS_SpikingformerFlowNet family:
+    (reference key, collection, flax path, transform)."""
+    R = []
+    root_t = "sttmultires_unet"
+    root_f = "sttmultires_unet"
+
+    # ---- patch embed (MS_PED_Spiking_PatchEmbed_Conv_sfn)
+    pe_t = f"{root_t}.encoders.swin3d.patch_embed"
+    pe_f = f"{root_f}/encoders/patch_embed"
+    R += _conv_block_rules(f"{pe_t}.head", f"{pe_f}/head")
+    R += _conv_block_rules(f"{pe_t}.conv", f"{pe_f}/conv", has_sn=False)
+    # SEW embeds have a trailing sn on the stride-2 conv; MS_PED's has none
+    R += _neuron_rules(f"{pe_t}.conv.sn", f"{pe_f}/conv/sn")
+    for r in range(pe_res):
+        R += _resblock_rules(f"{pe_t}.residual_encoding.resblocks.{r}",
+                             f"{pe_f}/residual_encoding/res{r}")
+    # PED projection (direct nn.Conv2d / nn.BatchNorm2d)
+    R += [(f"{pe_t}.proj.conv_res.weight", "params",
+           f"{pe_f}/proj/conv_res/kernel", "conv"),
+          (f"{pe_t}.proj.conv.weight", "params",
+           f"{pe_f}/proj/conv/kernel", "conv")]
+    R += _norm_rule(f"{pe_t}.proj.norm_layer", f"{pe_f}/proj/norm",
+                    direct=True)
+    R += _neuron_rules(f"{pe_t}.proj.sn", f"{pe_f}/proj/sn")
+
+    # ---- swin stages
+    for i in range(num_stages):
+        st_t = f"{root_t}.encoders.swin3d.layers.{i}"
+        st_f = f"{root_f}/encoders/stage{i}"
+        for j in range(max_depth):
+            b_t = f"{st_t}.swin_blocks.{j}"
+            b_f = f"{st_f}/block{j}"
+            a_t, a_f = f"{b_t}.attn", f"{b_f}/attn"
+            R += [(f"{a_t}.positional_encoding", "params",
+                   f"{a_f}/k/positional_encoding", "id"),
+                  (f"{a_t}.relative_position_bias_table", "params",
+                   f"{a_f}/relative_position_bias_table", "id"),
+                  (f"{a_t}.linear_q.weight", "params",
+                   f"{a_f}/q/linear/kernel", "linear"),
+                  (f"{a_t}.linear_k.weight", "params",
+                   f"{a_f}/k/linear/kernel", "linear"),
+                  (f"{a_t}.linear_v.weight", "params",
+                   f"{a_f}/v/linear/kernel", "linear"),
+                  (f"{a_t}.proj.weight", "params",
+                   f"{a_f}/proj/kernel", "linear"),
+                  (f"{a_t}.proj.bias", "params", f"{a_f}/proj/bias", "id")]
+            for qkv in ("q", "k", "v"):
+                R += _norm_rule(f"{a_t}.bn_{qkv}", f"{a_f}/{qkv}/bn")
+                R += _neuron_rules(f"{a_t}.sn_{qkv}", f"{a_f}/{qkv}/sn")
+            R += _norm_rule(f"{a_t}.proj_bn", f"{a_f}/proj_bn")
+            for s in ("sn2_q", "attn_sn", "proj_sn"):
+                R += _neuron_rules(f"{a_t}.{s}", f"{a_f}/{s}")
+            # swinv2 (Hamming) attention: logit_scale + cpb MLP
+            R += [(f"{a_t}.logit_scale", "params", f"{a_f}/logit_scale",
+                   "id"),
+                  (f"{a_t}.cpb_mlp.0.weight", "params",
+                   f"{a_f}/cpb_fc1/kernel", "linear"),
+                  (f"{a_t}.cpb_mlp.0.bias", "params", f"{a_f}/cpb_fc1/bias",
+                   "id"),
+                  (f"{a_t}.cpb_mlp.2.weight", "params",
+                   f"{a_f}/cpb_fc2/kernel", "linear")]
+            m_t, m_f = f"{b_t}.mlp", f"{b_f}/mlp"
+            R += [(f"{m_t}.fc1.weight", "params", f"{m_f}/fc1/kernel",
+                   "linear"),
+                  (f"{m_t}.fc2.weight", "params", f"{m_f}/fc2/kernel",
+                   "linear")]
+            R += _norm_rule(f"{m_t}.bn1", f"{m_f}/bn1")
+            R += _norm_rule(f"{m_t}.bn2", f"{m_f}/bn2")
+            R += _neuron_rules(f"{m_t}.sn1", f"{m_f}/sn1")
+            R += _neuron_rules(f"{m_t}.sn2", f"{m_f}/sn2")
+        # patch merging
+        R += [(f"{st_t}.downsample.reduction.weight", "params",
+               f"{st_f}/downsample/reduction/kernel", "linear")]
+        R += _norm_rule(f"{st_t}.downsample.norm", f"{st_f}/downsample/norm")
+        R += _neuron_rules(f"{st_t}.downsample.sn", f"{st_f}/downsample/sn")
+
+    # ---- bottleneck resblocks + decoders + preds
+    for i in range(num_res):
+        R += _resblock_rules(f"{root_t}.resblocks.{i}",
+                             f"{root_f}/resblock{i}")
+    for i in range(num_encoders):
+        R += _conv_block_rules(f"{root_t}.decoders.{i}",
+                               f"{root_f}/decoder{i}", deconv=True)
+        R += _neuron_rules(f"{root_t}.preds.{i}.sn", f"{root_f}/pred{i}/sn")
+        R += [(f"{root_t}.preds.{i}.conv.0.weight", "params",
+               f"{root_f}/pred{i}/conv/kernel", "conv"),
+              (f"{root_t}.preds.{i}.conv.0.bias", "params",
+               f"{root_f}/pred{i}/conv/bias", "id")]
+    return R
+
+
+def convert_state_dict(state_dict: Dict[str, np.ndarray], num_stages=4,
+                       max_depth=8, num_encoders=4) -> Tuple[dict, dict, list]:
+    """Reference state_dict -> (params, batch_stats, unmatched keys): the
+    ``module.`` prefix of DataParallel checkpoints stripped,
+    ``num_batches_tracked`` and the membrane state ``.spiking_neuron.v``
+    skipped."""
+    rules = {t: (coll, path, tr) for t, coll, path, tr in build_rules(
+        num_stages=num_stages, max_depth=max_depth,
+        num_encoders=num_encoders)}
+    params: dict = {}
+    batch_stats: dict = {}
+    unmatched = []
+    for key, val in state_dict.items():
+        key = re.sub(r"^module\.", "", key)
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key.endswith(".spiking_neuron.v"):
+            continue  # membrane state buffer (reset to 0), not a parameter
+        if key not in rules:
+            unmatched.append(key)
+            continue
+        coll, path, tr = rules[key]
+        node = params if coll == "params" else batch_stats
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _TRANSFORMS[tr](np.asarray(val))
+    return params, batch_stats, unmatched
+
+
+def flax_to_torch_key(coll: str, path: str, num_stages=4, max_depth=8,
+                      num_encoders=4):
+    """(reference key, transform) of a flax variable path, or (None, None)."""
+    for t, c, f, tr in build_rules(num_stages=num_stages, max_depth=max_depth,
+                                   num_encoders=num_encoders):
+        if c == coll and f == path:
+            return t, tr
+    return None, None
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A reference ``.pt``/``.pth`` -> {key: numpy array}: a state_dict, a
+    dict holding one under ``state_dict``, or a whole pickled model (which
+    needs the reference's classes to unpickle)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except (ModuleNotFoundError, AttributeError) as e:
+        raise RuntimeError(
+            f"{path}: cannot unpickle ({e}); a checkpoint that holds a whole "
+            "model needs the reference's classes on the path - save its "
+            "state_dict() instead") from e
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: v.detach().cpu().numpy() for k, v in obj.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _depths(model: nn.Module):
+    """The rule-list sizes of ``model``: its stages, its deepest stage's
+    blocks, its decoders."""
+    found = [tuple(map(int, m.groups())) for m in map(
+        re.compile(r"\.stage(\d+)\.block(\d+)\.").search, model.state_dict())
+        if m]
+    return dict(num_stages=1 + max(i for i, _ in found),
+                max_depth=1 + max(j for _, j in found),
+                num_encoders=model.sttmultires_unet.num_encoders)
+
+
+def load_reference_state_dict(state_dict: Dict[str, np.ndarray],
+                              model: nn.Module) -> Tuple[dict, list]:
+    """Reference-named state_dict -> (``model``'s state_dict, unmatched
+    reference keys). Every entry of ``model`` is filled, or ``from_jax``
+    raises ``KeyError``."""
+    params, batch_stats, unmatched = convert_state_dict(state_dict,
+                                                        **_depths(model))
+    return from_jax({"params": params, "batch_stats": batch_stats},
+                    model), unmatched
+
+
+def _flax_name(module: nn.Module, leaf: str) -> Tuple[str, str]:
+    """(collection, flax leaf) of the port entry ``leaf`` of ``module``:
+    ``from_jax``'s naming run backwards."""
+    if isinstance(module, TorchBatchNorm):
+        return {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")}[leaf]
+    if leaf == "weight" and isinstance(module, (Conv2d, TorchConvTranspose,
+                                                nn.Linear)):
+        return "params", "kernel"
+    return "params", leaf
+
+
+def to_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s state_dict under the reference's names (the inverse of
+    :func:`load_reference_state_dict`); raises ``KeyError`` for an entry
+    no rule covers."""
+    modules = dict(model.named_modules())
+    rules = {(c, f): t for t, c, f, _ in build_rules(**_depths(model))}
+    out = {}
+    for key, val in model.state_dict().items():
+        mod_name, leaf = key.rsplit(".", 1)
+        coll, flax_leaf = _flax_name(modules[mod_name], leaf)
+        path = "/".join(mod_name.split(".") + [flax_leaf])
+        if (coll, path) not in rules:
+            raise KeyError(f"port entry {key} ({coll}/{path}) has no "
+                           "reference name")
+        out[rules[(coll, path)]] = val
+    return out

@@ -35,9 +35,11 @@ from ..data.augmentation import build_train_augmentation, center_crop
 from ..data.dsec import batch_iterator
 from ..losses import flow_loss_supervised
 from ..models.registry import get_model
+from ..ops.normalization import encode_input
 from ..utils.logging import RunLogger, count_parameters
 from .checkpoints import restore_checkpoint, save_checkpoint
 from .config import build_configs
+from .evaluate import event_footprint_mask
 from .optim import build_optimizer
 from .train_step import make_eval_step, make_train_step
 
@@ -94,6 +96,11 @@ def _train(config, train_dataset, valid_dataset, *, run_dir, resume,
         raise NotImplementedError("optimizer.remat is not ported (measured "
                                   "negative for the SNN in the JAX package)")
     seed = loader.get("seed", 0)
+    voxelize = _events_voxelize_cfg(config, train_dataset)
+    if voxelize is not None:
+        # raw events train and validate on the whole frame, as in JAX
+        swin_cfg = swin_cfg.replace(
+            input_size=(voxelize["height"], voxelize["width"]))
     torch.manual_seed(seed)
     model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
                       train=True).to(device)
@@ -123,7 +130,6 @@ def _train(config, train_dataset, valid_dataset, *, run_dir, resume,
               polarity=loader.get("polarity", True) and is_snn,
               norm_input=config["model"].get("norm_input"),
               spike_th=config["data"].get("spike_th"))
-    voxelize = _events_voxelize_cfg(config, train_dataset)
     train_step = make_train_step(
         model, optimizer, **kw,
         flow_scaling=config["metrics"].get("flow_scaling", 1.0),
@@ -231,9 +237,14 @@ def validate(config, eval_step, dataset, crop=None, batch_size=None,
     batch_size = batch_size or loader["batch_size"]
     max_batches = config["test"].get("sample", 40) // batch_size + 1
     flow_scaling = config["metrics"].get("flow_scaling", 1.0)
-    if config["metrics"].get("mask_events", False):
-        raise NotImplementedError("metrics.mask_events in validation is not "
-                                  "ported")
+    # the reference validates on the finest flow only and, with
+    # metrics.mask_events, masks by the encoded chunk's footprint
+    mask_events = config["metrics"].get("mask_events", False)
+    encode_kw = dict(encoding=config["model"].get("encoding", "voxel"),
+                     polarity=(loader.get("polarity", True)
+                               and "Spiking" in config["model"]["name"]),
+                     norm_input=config["model"].get("norm_input"),
+                     spike_th=config["data"].get("spike_th"))
     losses, count = [], 0
     for i, batch in enumerate(batch_iterator(
             dataset, batch_size, workers=loader.get("n_workers", 0))):
@@ -250,6 +261,9 @@ def validate(config, eval_step, dataset, crop=None, batch_size=None,
                                                  tuple(crop))
         flows = eval_step(chunk)
         with torch.inference_mode():
+            if mask_events and not isinstance(chunk, dict):
+                mask = event_footprint_mask(mask,
+                                            encode_input(chunk, **encode_kw))
             losses.append(flow_loss_supervised(
                 [flows[-1]], label, mask, flow_scaling=flow_scaling))
         count += batch_size

@@ -21,6 +21,7 @@ from ..ops.hopper_embed import fused_embed_forward
 from ..ops.hopper_voxel import voxel_k3
 from ..ops.normalization import encode_input
 from ..ops.voxel import voxel_grid_signed
+from .evaluate import event_footprint_mask
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -144,9 +145,7 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
         x = _model_input(chunk, crop, voxelize, None, **kw)
         mask = batch["mask"]
         if mask_events:
-            # the encoded chunk's footprint (the reference's live form)
-            axes = (1, 2) if x.dim() == 5 else (1,)
-            mask = mask * (x.sum(dim=axes) != 0)[:, None].to(mask.dtype)
+            mask = event_footprint_mask(mask, x)
         optimizer.zero_grad()
         flows = [f.to(torch.promote_types(f.dtype, torch.float32))
                  for f in forward(x)]

@@ -478,3 +478,102 @@ def test_k4a_and_k2c_match_plain_bitwise(dev, dtype):
         assert got.dtype == dtype
         assert torch.equal(got, hopper_psn.psn_spike_tm_plain(xt, w, b))
         assert 0.0 < got.float().mean().item() < 1.0
+
+
+# ------------------------------------------------- the evaluation protocol
+
+def _metric_inputs(gen, b, h=24, w=32, bins=4):
+    label = torch.randn((b, 2, h, w), generator=gen) * 4
+    pred = label + torch.randn((b, 2, h, w), generator=gen) * 2
+    mask = (torch.rand((b, 1, h, w), generator=gen) < 0.7).float()
+    chunk = torch.randn((b, bins, h, w), generator=gen) * (
+        torch.rand((b, bins, h, w), generator=gen) < 0.3)
+    return pred, label, mask, chunk
+
+
+def _run_metrics(batches, device, dtype, **kw):
+    from sdformerflow_tpu_torch.training.evaluate import (
+        MetricsAccumulator, make_metrics_fn)
+    fn, acc = make_metrics_fn(metric_names=("AEE", "AAE"), **kw), \
+        MetricsAccumulator()
+    for parts in batches:
+        acc.append(fn(*(p.to(device, dtype) for p in parts)),
+                   parts[0].shape[0])
+    return acc.results()
+
+
+@pytest.mark.parametrize("mask_events", [False, True])
+def test_metrics_on_card_match_float64_cpu(dev, mask_events):
+    """float32 sums on the card against float64 on the CPU, same inputs."""
+    gen = torch.Generator().manual_seed(21)
+    batches = [_metric_inputs(gen, b) for b in (2, 2, 1)]
+    got = _run_metrics(batches, dev, torch.float32, mask_events=mask_events)
+    want = _run_metrics(batches, "cpu", torch.float64,
+                        mask_events=mask_events)
+    assert got["num_samples"] == 5 and set(got) == set(want)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+
+
+def test_eval_entry_on_a_tiny_tree(dev, tmp_path, monkeypatch):
+    """``eval_dsec.main`` on the card from a reference-named ``.pt``: the
+    voxel layout's metrics (``mask_events``) equal a float64 recompute on
+    the CPU from the same flows, labels, masks and chunks; without
+    ``mask_events`` the event layout (K3 once a batch row) gives the voxel
+    layout's results; K1 and K2 launch the same number of times each
+    batch."""
+    from dsec_tree import (N_VALID, make_tree, save_reference_checkpoint,
+                           tiny_config, write_config)
+    from sdformerflow_tpu_torch import eval_dsec
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.training import config as t_config
+    from sdformerflow_tpu_torch.training import evaluate, torch_interop
+    tree = make_tree(str(tmp_path / "dsec"))
+    cfg = t_config.load_config(write_config(
+        tmp_path / "v.yaml", tiny_config(tree, mask_events=True,
+                                         batch_size=1)))
+    model = get_model(cfg["model"]["name"], *t_config.build_configs(cfg))
+    randomize_(model, torch.Generator().manual_seed(22))
+    pt = save_reference_checkpoint(
+        tmp_path / "ref.pt", torch_interop.to_reference_state_dict(model))
+    recorded = []
+    make = evaluate.make_metrics_fn
+
+    def recording_make_metrics_fn(**kw):
+        fn = make(**kw)
+
+        def run(pred, label, mask, chunk=None):
+            recorded.append((pred, label, mask, chunk))
+            return fn(pred, label, mask, chunk)
+        return run
+
+    monkeypatch.setattr(eval_dsec, "make_metrics_fn",
+                        recording_make_metrics_fn)
+    results = []
+    for events, mask_events in ((False, True), (False, False),
+                                (True, False)):
+        path = write_config(tmp_path / "run.yaml", tiny_config(
+            tree, events=events, mask_events=mask_events, batch_size=1))
+        k1, k2, k3 = (hopper_attn.qk_attn_interior.launches,
+                      hopper_psn.fused_affine_psn.launches,
+                      hopper_voxel.voxel_k3.launches)
+        results.append(eval_dsec.main(
+            ["--train_config", path, "--torch_ckpt", pt,
+             "--run_dir", str(tmp_path / f"run{len(results)}")]))
+        assert hopper_voxel.voxel_k3.launches - k3 == (N_VALID if events
+                                                       else 0)
+        k1 = hopper_attn.qk_attn_interior.launches - k1
+        k2 = hopper_psn.fused_affine_psn.launches - k2
+        assert k1 > 0 and k2 > 0 and k1 % N_VALID == k2 % N_VALID == 0
+    assert results[1] == results[2] != results[0]
+    assert results[0]["num_samples"] == N_VALID
+    voxel_batches = recorded[:N_VALID]
+    assert all(r[3] is not None for r in voxel_batches)
+    with torch.inference_mode():
+        fn = make(metric_names=("AEE", "AAE"), mask_events=True)
+        acc = evaluate.MetricsAccumulator()
+        for parts in voxel_batches:
+            acc.append(fn(*(p.cpu().double() for p in parts)), 1)
+    want = acc.results()
+    for k in want:
+        assert results[0][k] == pytest.approx(want[k], rel=1e-5), k

@@ -32,12 +32,14 @@ PROBE = textwrap.dedent("""
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 31, out
+    assert int(out[0]) >= 35, out
     assert out[1:3] == ["0", "[]"], out    # nothing built, nothing of jax
     for name in ("native", "ops.voxel", "ops.hopper_voxel", "serving",
                  "training.train_step", "training.optim",
                  "training.train_loop", "training.checkpoints", "losses",
                  "data.dsec", "data.augmentation", "utils.logging",
                  "train_dsec", "ops.hopper_embed", "ops.s2d",
-                 "training.s2d_embed"):
+                 "training.s2d_embed", "training.evaluate",
+                 "training.torch_interop", "utils.visualization",
+                 "eval_dsec"):
         assert f"sdformerflow_tpu_torch.{name}" in out[3:], name

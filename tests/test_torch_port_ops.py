@@ -67,6 +67,12 @@ def test_encode_input_matches_jax_f64():
         want_th = np.asarray(j_norm.encode_input(jnp.asarray(chunk),
                                                  spike_th=0.5))
         want_zero = np.asarray(j_norm.encode_input(jnp.zeros((1, 2, 3, 3))))
+        want_std = np.asarray(j_norm.encode_input(jnp.asarray(chunk),
+                                                  norm_input="std"))
+        one = np.zeros((1, 1, 3, 3))
+        one[0, 0, 1, 1] = 0.5
+        want_one = np.asarray(j_norm.encode_input(jnp.asarray(one),
+                                                  norm_input="std"))
     got = normalization.encode_input(to_torch(chunk)).numpy()
     assert got.shape == (2, 10, 2, 6, 8)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
@@ -77,8 +83,14 @@ def test_encode_input_matches_jax_f64():
         normalization.encode_input(torch.zeros(1, 2, 3, 3,
                                                dtype=torch.float64)).numpy(),
         want_zero)
+    np.testing.assert_allclose(
+        normalization.encode_input(to_torch(chunk), norm_input="std").numpy(),
+        want_std, rtol=0, atol=1e-14)
+    np.testing.assert_array_equal(    # one nonzero value: its std is nan
+        normalization.encode_input(to_torch(one), norm_input="std").numpy(),
+        want_one)
     with pytest.raises(NotImplementedError):
-        normalization.encode_input(to_torch(chunk), norm_input="std")
+        normalization.encode_input(to_torch(chunk), norm_input="l2")
 
 
 @pytest.mark.parametrize("src,dst", [((72, 96), (288, 384)), ((5, 7), (12, 15)),

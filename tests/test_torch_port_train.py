@@ -179,7 +179,8 @@ def test_trainer_entry_runs_and_resumes_on_cpu(tmp_path):
     assert latest_epoch(os.path.join(run_dir, "ckpt")) == 1
     assert [r["step"] for r in _metrics(run_dir)
             if r["name"] == "train_loss"] == [0, 1]
-    with pytest.raises(SystemExit, match="DSEC"):
+    # without --synthetic it reads the DSEC tree at data.path
+    with pytest.raises(FileNotFoundError, match="sequence_lists"):
         train_dsec.main(["--config", TINY_CONFIG, "--device", "cpu"])
 
 
