@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, train and DSEC evaluation paths once on
-one NVIDIA H100.
+one NVIDIA H100, for the en4 SNN and the ANN family.
 
 Run from the root of the repository, with no arguments:
 
@@ -106,7 +106,32 @@ Phases (any failure exits non-zero):
    trainer
    (``train_dsec.main``) 2 float32 steps from each layout of the tree (K2b
    93 a step at 288x384); ``eval_dsec --ckpt`` and
-   ``FlowServer(ckpt=...)`` on the trainer's checkpoint.
+   ``FlowServer(ckpt=...)`` on the trainer's checkpoint;
+13. the ANN family, which runs none of the kernels (every launch count is
+   set to 0 at its start and must be 0 at its end): STTFlowNet at the
+   full width of
+   ``configs/train_dsec_stt_voxel.yaml`` (base 96, depths (2,2,6),
+   swin-v2, PatchEmbedLocal, patch (10,4,4), window (2,9,9), 20 bins,
+   288x384, seeded random weights): the float32 forward (TF32 off) against
+   the float64 forward of the same weights, within 1e-4 of the largest
+   flow; ``FlowServer`` in bf16 on voxel requests (latency over 64 one at
+   a time, windows/s over 64 queued, device busy, the bf16 flows within a
+   mean EPE of 5% of the mean |flow| of the float32 forward, an events
+   request refused); what a batch-1 forward keeps for the backward and the
+   step's peak, plain and under remat ``dots`` and ``all``, whose gradients
+   must equal the plain step's (same drop-path seed) within 1e-5 of the
+   largest in float32 and, the same steps in float64, within 1e-9 of each
+   leaf's own largest; the trainer (``train_dsec --synthetic``, float32) at batch 8
+   and 1, with and without remat ``dots``: step p50/p90 after 2 warm-up
+   steps, peak memory, device busy per batch-8 step; ``eval_dsec.main`` in
+   bf16 from a reference-named ``.pt`` on phase 12's 480x640 tree with a
+   doubleseq split (two 10-bin chunks a window), the metrics within 1e-9
+   of the float64 recompute, windows/s over the split cycled to 64
+   windows (batch 1, the first left out); STTFlowNet_4en at the MDR geometry
+   (``configs/train_mdr_stt_voxel.yaml``, 256x256, 10 bins): a bf16
+   forward (EPE bound as above) and a float32 train step; MultiResUNet
+   (base 32, 4 encoders, kernel 5) at 288x384: float32 against float64.
+   The JSON line ``{"ann": ...}`` before the kernels line holds them.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -2712,9 +2737,11 @@ def recompute_numpy(rec):
     the sums divided by the sample count. Returns (metrics, the share of
     the GT-valid pixels that the footprint keeps, or None)."""
     kw = rec["metric_kw"]
-    check(kw["encoding"] == "voxel" and kw["polarity"]
-          and kw["norm_input"] == "minmax" and kw["spike_th"] is None,
-          f"[12] the float64 recompute covers the en4 encoding, not {kw}")
+    check(not kw["mask_events"] or (
+        kw["encoding"] == "voxel" and kw["polarity"]
+        and kw["norm_input"] == "minmax" and kw["spike_th"] is None),
+        f"the float64 recompute's footprint covers the en4 encoding, not "
+        f"{kw}")
     sums, n, kept, valid = dict.fromkeys(kw["metric_names"], 0.0), 0, 0, 0
     sums.update(dict.fromkeys(("PE1", "PE2", "PE3", "outlier"), 0.0))
     for pred, label, mask, chunk in rec["inputs"]:
@@ -3089,6 +3116,506 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
         events_per_window=n_events, seconds=secs)
 
 
+# ----------------------------------------------------------- phase 13
+# the ANN family: STTFlowNet (the DSEC STT config at full width), its
+# 4-encoder variant at the MDR geometry, and the plain conv MultiResUNet
+
+STT_CONFIG = os.path.join(ROOT, "configs", "train_dsec_stt_voxel.yaml")
+STT_MDR_CONFIG = os.path.join(ROOT, "configs", "train_mdr_stt_voxel.yaml")
+ANN_TRAIN_STEPS = 14       # 2 warm-up + 12 timed, as phase 9
+# the float32 forward on the card against the float64 forward of the same
+# weights and input: the largest |d| over the largest |flow| of the float64
+# forward (the ANN is not chaotic: no threshold flips)
+ANN_F32_TOL = 1e-4
+# the bf16 server against the float32 forward of the same weights: the
+# mean end-point error over the mean |flow| of the float32 forward
+ANN_BF16_EPE = 0.05
+# remat against the plain step, the same drop-path generator seed: in
+# float32, each gradient's largest |d| over the largest |gradient| of the
+# step; in float64, each leaf's largest |d| over that leaf's own largest
+# |gradient| (on the H100, float32 moved a leaf whose gradient cancels by
+# 3.55e-5 of itself, cuDNN held to its deterministic algorithms; float64's
+# rounding is 2^29 times finer, a fault of the recompute is not)
+ANN_REMAT_TOL = 1e-5
+ANN_REMAT_F64_TOL = 1e-9
+
+
+def kernel_wrappers():
+    """Every kernel wrapper (its ``launches`` is the count), by name."""
+    from sdformerflow_tpu_torch.ops import (hopper_attn, hopper_embed,
+                                            hopper_psn, hopper_voxel)
+    return {"K1": hopper_attn.qk_attn_interior,
+            "K2": hopper_psn.fused_affine_psn,
+            "K2b": hopper_psn.fused_psn_backward,
+            "K2c": hopper_psn.psn_spike_tm,
+            "K3": hopper_voxel.voxel_k3,
+            "K4": hopper_embed.conv3x3_affine_cs,
+            "K4a": hopper_embed.psn_spike_cs}
+
+
+def ann_model(torch, dev, path, seed, train=False):
+    """(config, model on ``dev``) of an ANN config, seeded random weights."""
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.training.config import (build_configs,
+                                                        chunk_bins,
+                                                        load_config)
+    config = load_config(path)
+    model = get_model(config["model"]["name"], *build_configs(config),
+                      train=train, input_bins=chunk_bins(config))
+    randomize_(model, torch.Generator().manual_seed(seed))
+    return config, model.to(dev)
+
+
+def f64_rel_err(torch, model, x):
+    """(float32 flows, largest |f32 - f64| over the largest |f64 flow|):
+    ``model`` (float32, eval) and a float64 copy on the same input."""
+    import copy
+    with torch.no_grad():
+        f32 = model(x)["flow"]
+        f64 = copy.deepcopy(model).double()(x.double())["flow"]
+    top = max(float(b.abs().max()) for b in f64)
+    err = max(float((a.double() - b).abs().max()) for a, b in zip(f32, f64))
+    return f32, err / top
+
+
+def leaf_errors(grads, want):
+    """Each leaf's largest |d| of ``grads`` against ``want`` over that
+    leaf's largest |gradient| in ``want`` (a leaf whose gradient is 0 must
+    stay exactly 0): (the worst ratio, its leaf)."""
+    worst = (-1.0, None)
+    for n, g in want.items():
+        d = float((grads[n] - g).abs().max())
+        top = float(g.abs().max())
+        r = d / top if top > 0 else (0.0 if d == 0 else float("inf"))
+        worst = max(worst, (r, n), key=lambda e: e[0])
+    return worst
+
+
+def epe_share(a, b):
+    """Mean end-point error of flows ``a`` against ``b`` ([..., 2, H, W])
+    over the mean |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(((a - b) ** 2).sum(-3)).mean()
+                 / np.sqrt((b ** 2).sum(-3)).mean())
+
+
+def ann_step(torch, dev, config, model, gen_seed, **kw):
+    """(optimizer, the config's train step on ``model``) with drop-path
+    drawn from a generator seeded ``gen_seed``."""
+    from sdformerflow_tpu_torch.training.optim import build_optimizer
+    from sdformerflow_tpu_torch.training.train_step import make_train_step
+    oc = config["optimizer"]
+    opt = build_optimizer(model.named_parameters(), lr=oc["lr"],
+                          weight_decay=oc["wd"], milestones=oc["milestones"],
+                          clip_grad=config["loss"]["clip_grad"])
+    step = make_train_step(
+        model, opt, polarity=False, norm_input=config["model"]["norm_input"],
+        generator=torch.Generator(dev).manual_seed(gen_seed), **kw)
+    return opt, step
+
+
+def ann_trainer(torch, root, name, raw, **changes):
+    """``train_dsec.main --synthetic`` on the STT config with ``changes``
+    (section -> keys): (step ms, losses, peak GiB, model, optimizer)."""
+    import shutil
+    import yaml
+    from sdformerflow_tpu_torch import train_dsec
+    from sdformerflow_tpu_torch.training import train_loop as TL
+    cfg = json.loads(json.dumps(raw))
+    for section, kw in changes.items():
+        cfg.setdefault(section, {}).update(kw)
+    path = os.path.join(root, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run_dir = os.path.join(root, f"run_{name}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    records = []
+
+    def timed(make):
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+
+            def run(batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(batch)
+                torch.cuda.synchronize()
+                records.append(((time.perf_counter() - t0) * 1e3,
+                                out["loss"].item()))
+                return out
+            run.model = step.model
+            return run
+        return make_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(TL, "make_train_step", timed):
+        model, opt = train_dsec.main(["--config", path, "--synthetic",
+                                      "--max_steps", str(ANN_TRAIN_STEPS),
+                                      "--run_dir", run_dir])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, losses = [r[0] for r in records], [r[1] for r in records]
+    check(len(records) == ANN_TRAIN_STEPS and all(np.isfinite(losses))
+          and int(opt.count) == ANN_TRAIN_STEPS
+          and int(opt.notfinite_count) == 0,
+          f"[13] trainer {name}: {len(records)} steps, losses {losses}, "
+          f"{int(opt.count)} updates")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        names = {json.loads(line)["name"] for line in f}
+    check({"train_loss", "valid_loss"} <= names,
+          f"[13] trainer {name}: metrics.jsonl {names}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return ms, losses, peak, model, opt
+
+
+def write_doubleseq(tree, rows):
+    with open(os.path.join(tree, "sequence_lists",
+                           "valid_split_doubleseq.csv"), "w") as f:
+        f.write("\n".join(f"{a},{b}" for a, b in rows) + "\n")
+
+
+def stt_eval(torch, dev, root, raw, state_dict):
+    """``eval_dsec.main`` with the STT config (two 10-bin chunks a window)
+    on a 480x640 DSEC tree written by phase 12's writer with a doubleseq
+    split, from a reference-named ``.pt``, bf16; the metrics against the
+    float64 recompute; a first pass makes the valid GT; timed as phase 12
+    times the en4's, over the split cycled to ``DSEC_TIMED`` windows."""
+    import shutil
+    import yaml
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.training.config import (build_configs,
+                                                        chunk_bins,
+                                                        load_config)
+    from sdformerflow_tpu_torch.training.torch_interop import (
+        to_reference_state_dict)
+    tree = os.path.join(root, "dsec")
+    shutil.rmtree(tree, ignore_errors=True)
+    bins = raw["data"]["num_frames"]
+    n_events, valid, seen = write_dsec_tree(torch, dev, tree, bins)
+    names = sorted(os.listdir(os.path.join(tree, "gt_tensors")))
+    # the first chunk of each row is the window before it (a train window
+    # before the first): the GT is each valid window's
+    rows = [(names[-1], valid[0])] + list(zip(valid[:-1], valid[1:]))
+    write_doubleseq(tree, rows)
+    cfg = json.loads(json.dumps(raw))
+    cfg["metrics"]["name"] = ["AEE", "AAE"]
+    cfg["loader"]["batch_size"] = 1     # windows/s after the first batch
+    path = os.path.join(root, "stt_eval.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    config = load_config(path)
+    model = get_model(config["model"]["name"], *build_configs(config),
+                      input_bins=chunk_bins(config))
+    model.load_state_dict(state_dict)
+    pt = os.path.join(root, "reference_stt.pt")
+    torch.save({"module." + k: v for k, v in
+                to_reference_state_dict(model).items()}, pt)
+    del model
+    argv = ["--train_config", path, "--torch_ckpt", pt, "--path", tree,
+            "--bf16"]
+    first = eval_run(torch, argv + ["--run_dir",
+                                    os.path.join(root, "eval_first")])
+    preds = [p[0][i:i + 1] for p in first["inputs"]
+             for i in range(p[0].shape[0])]
+    write_dsec_gt(tree, valid, preds, seen, tuple(config["loader"]["crop"]))
+    rec = eval_run(torch, argv + ["--run_dir",
+                                  os.path.join(root, "eval_voxel")])
+    res = rec["results"]
+    check(set(DSEC_METRICS) <= set(res) and res["num_samples"] == DSEC_VALID
+          and all(np.isfinite(res[k]) for k in DSEC_METRICS),
+          f"[13] STT eval_dsec: results {res}")
+    want, _ = recompute_numpy(rec)
+    rel = {k: abs(res[k] - want[k]) / max(abs(want[k]), 1e-300)
+           for k in DSEC_METRICS}
+    check(all(e <= DSEC_EVAL_TOL for e in rel.values()),
+          f"[13] STT eval_dsec against the float64 recompute: {rel}")
+    check(all(v == 0 for v in rec["launches"].values()),
+          f"[13] STT eval_dsec launched kernels: {rec['launches']}")
+    # the timed run: the doubleseq split cycled to DSEC_TIMED windows, the
+    # first batch left out as the warm-up
+    write_doubleseq(tree, [rows[i % DSEC_VALID] for i in range(DSEC_TIMED)])
+    timed = eval_run(torch, argv + ["--run_dir",
+                                    os.path.join(root, "eval_timed")])
+    t_res = timed["results"]
+    check(t_res["num_samples"] == t_res["num_batches"] == DSEC_TIMED
+          and all(abs(t_res[k] - res[k]) <= DSEC_EVAL_TOL * abs(res[k])
+                  for k in DSEC_METRICS)
+          and not any(timed["launches"].values()),
+          f"[13] STT eval_dsec timed: {t_res} (the {DSEC_VALID}-window run "
+          f"{res}), launches {timed['launches']}")
+    shutil.rmtree(tree, ignore_errors=True)
+    return dict(metrics={k: res[k] for k in DSEC_METRICS},
+                rel_err_vs_f64=max(rel.values()),
+                windows_per_s=timed["windows_per_s"],
+                timed_windows=DSEC_TIMED, main_s=timed["main_s"],
+                events_per_window=n_events)
+
+
+def phase_ann(torch, dev, card):
+    """STTFlowNet at the DSEC STT config's full width: the f32 forward
+    against float64, FlowServer in bf16 (latency, throughput, busy, the
+    bf16 EPE), the trainer at batch 8 and 1 with and without remat, remat's
+    gradients against the plain step's, eval_dsec on a doubleseq tree;
+    STTFlowNet_4en at the MDR geometry (a bf16 forward, an f32 train
+    step); MultiResUNet's f32 forward against float64. No kernel of the
+    port lies on these paths: every launch count, set to 0 at the start,
+    must still be 0 at the end."""
+    import copy
+    import shutil
+    import yaml
+    from sdformerflow_tpu_torch.serving import FlowServer
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    t_phase = time.perf_counter()
+    for wrapper in kernel_wrappers().values():     # counted from 0
+        wrapper.launches = 0
+    root = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build", "smoke_ann")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+
+    # --- STTFlowNet, 20 bins at 288x384: f32 against float64
+    config, model = ann_model(torch, dev, STT_CONFIG, SEED + 130)
+    hw, bins = tuple(config["loader"]["crop"]), config["model"]["num_bins"]
+    state_dict = {k: v.cpu() for k, v in model.state_dict().items()}
+    x = torch.from_numpy(np.stack(voxel_requests(1, bins, hw,
+                                                 SEED + 131))).to(dev)
+    f32, err = f64_rel_err(torch, model, x)
+    check(len(f32) == 3 and all(f.shape == (1, 2) + hw for f in f32)
+          and err <= ANN_F32_TOL,
+          f"[13] STTFlowNet f32 vs float64: {err:.3g} of the largest flow "
+          f"(bound {ANN_F32_TOL})")
+    out["stt_f32_vs_f64"] = err
+    log(f"[13] STTFlowNet (base 96, depths (2,2,6), swin-v2, PatchEmbedLocal"
+        f", patch (10,4,4), window (2,9,9)) at {hw[0]}x{hw[1]}, {bins} bins: "
+        f"f32 (TF32 off) vs float64 forward on the card, largest |d| "
+        f"{err:.3g} of the largest |flow| "
+        f"({max(float(f.abs().max()) for f in f32):.4g}); bound {ANN_F32_TOL}")
+
+    # --- FlowServer in bf16: voxel requests of 20 bins
+    requests = voxel_requests(N_LATENCY + N_QUEUED, bins, hw, SEED + 132)
+    eval32 = make_eval_step(model, polarity=False,
+                            norm_input=config["model"]["norm_input"])
+    with torch.no_grad():
+        want = [eval32(torch.from_numpy(r)[None].to(dev))[-1][0].cpu()
+                .numpy() for r in requests[:4]]
+    with FlowServer(config, state_dict, device=dev, bf16=True) as server:
+        server.warmup()
+        latencies, flows = [], []
+        for r in requests[:N_LATENCY]:
+            t0 = time.perf_counter()
+            flows.append(server.infer(r))
+            latencies.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        futs = [server.submit(r) for r in requests[N_LATENCY:]]
+        flows += [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        dev_ms = device_ms_per_call(torch,
+                                    lambda: server.infer(requests[0]), 8)
+        try:
+            server.infer({k: np.zeros(4096, np.float32) for k in "xytp"})
+            refused = False
+        except ValueError:
+            refused = True
+    check(all(f.shape == (2,) + hw and np.isfinite(f).all() for f in flows),
+          "[13] STT server: flow shapes / finiteness")
+    check(refused, "[13] STT server: an events request (10 bins) was not "
+          "refused")
+    bf16_epe = max(epe_share(f, w) for f, w in zip(flows[:4], want))
+    check(bf16_epe <= ANN_BF16_EPE, f"[13] STT bf16 vs f32: EPE "
+          f"{bf16_epe:.3g} of the mean |flow| (bound {ANN_BF16_EPE})")
+    p50, p90 = (float(v) for v in np.percentile(latencies, [50, 90]))
+    out["serving"] = dict(p50_ms=p50, p90_ms=p90,
+                          windows_per_s=N_QUEUED / wall,
+                          device_ms_per_request=dev_ms,
+                          bf16_epe_share=bf16_epe)
+    log(f"[13] STT FlowServer bf16 on {card}: {N_LATENCY} requests one at a "
+        f"time p50 {p50:.2f} ms, p90 {p90:.2f}; {N_QUEUED} queued "
+        f"{N_QUEUED / wall:.2f} windows/s; device busy per request "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
+        + f"; bf16 vs f32 mean EPE {bf16_epe:.3g} of the mean |flow| "
+        f"(bound {ANN_BF16_EPE}); an events request refused (ValueError)")
+    del eval32, flows, requests
+
+    # --- remat: the same gradients as the plain step, batch 1
+    from sdformerflow_tpu_torch.training.remat import Remat
+    batch = train_batch(torch, dev, hw, SEED + 133, bins=bins)
+    grads, memory = {}, {}
+    for remat in (None, "dots", "all"):
+        m = copy.deepcopy(model).train()
+        # what the forward keeps for the backward (memory held after it)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with (contextlib.nullcontext() if remat is None else Remat(
+                m, remat, torch.Generator(dev).manual_seed(SEED))):
+            flows = m(batch["chunk"])["flow"]
+        torch.cuda.synchronize()
+        kept = (torch.cuda.memory_allocated() - base) / 2 ** 30
+        del flows
+        _, step = ann_step(torch, dev, config, m, SEED + 134, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        if remat is None:     # the step's largest allocation, and its caller
+            torch.cuda.memory._record_memory_history(max_entries=100000,
+                                                     stacks="all")
+        step(batch)
+        torch.cuda.synchronize()
+        memory[str(remat)] = dict(
+            forward_kept_gib=kept, model_gib=base / 2 ** 30,
+            step_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if remat is None:
+            trace = torch.cuda.memory._snapshot()["device_traces"][0]
+            torch.cuda.memory._record_memory_history(enabled=None)
+            big = max((e for e in trace if e["action"] == "alloc"),
+                      key=lambda e: e["size"])
+            memory["largest_alloc"] = dict(gib=big["size"] / 2 ** 30, by=next(
+                (f["name"].split("(")[0] for f in big.get("frames", [])
+                 if "cudnn_convolution" in f["name"]), "not a cuDNN call"))
+        grads[remat] = {n: p.grad.detach().clone()
+                        for n, p in m.named_parameters()}
+        del m, step
+    out["memory_b1"] = memory
+    big = memory["largest_alloc"]
+    log(f"[13] batch-1 memory (GiB): the model {memory['None']['model_gib']:.3f}; "
+        + "; ".join(f"remat {k}: the forward keeps {v['forward_kept_gib']:.3f},"
+                    f" step peak {v['step_peak_gib']:.3f}"
+                    for k, v in memory.items() if k != "largest_alloc")
+        + f"; the plain step's largest allocation {big['gib']:.3f} GiB by "
+        f"{big['by']}")
+    # the gradients: float32 against the step's largest, then the same
+    # steps in float64, each leaf against its own largest
+    top = max(float(g.abs().max()) for g in grads[None].values())
+    remat_err = max(float((grads[r][n] - g).abs().max())
+                    for n, g in grads[None].items()
+                    for r in ("dots", "all")) / top
+    check(remat_err <= ANN_REMAT_TOL, f"[13] remat vs plain gradients, f32: "
+          f"{remat_err:.3g} of the largest (bound {ANN_REMAT_TOL})")
+    f32_leaf = max((leaf_errors(grads[r], grads[None])
+                    for r in ("dots", "all")), key=lambda e: e[0])
+    f64 = {}
+    for remat in (None, "dots", "all"):
+        m = copy.deepcopy(model).double().train()
+        _, step = ann_step(torch, dev, config, m, SEED + 134, remat=remat)
+        step(batch)
+        f64[remat] = {n: p.grad.detach().clone()
+                      for n, p in m.named_parameters()}
+        del m, step
+    f64_leaf = max((leaf_errors(f64[r], f64[None]) for r in ("dots", "all")),
+                   key=lambda e: e[0])
+    check(f64_leaf[0] <= ANN_REMAT_F64_TOL, f"[13] remat vs plain gradients, "
+          f"float64: {f64_leaf[0]:.3g} of the leaf's own largest at "
+          f"{f64_leaf[1]} (bound {ANN_REMAT_F64_TOL})")
+    out["remat_grad_err"] = dict(
+        f32_of_largest=remat_err, f32_worst_leaf=f32_leaf[0],
+        f32_leaf=f32_leaf[1], f64_worst_leaf=f64_leaf[0],
+        f64_leaf=f64_leaf[1])
+    log(f"[13] remat dots and all vs the plain step, batch 1, drop-path from "
+        f"one seed: f32, largest |d| {remat_err:.3g} of the largest gradient "
+        f"{top:.4g} (bound {ANN_REMAT_TOL}), the worst of {len(f64[None])} "
+        f"leaves {f32_leaf[0]:.3g} of its own largest ({f32_leaf[1]}); "
+        f"float64, the worst leaf {f64_leaf[0]:.3g} of its own largest "
+        f"({f64_leaf[1]}; bound {ANN_REMAT_F64_TOL})")
+    del grads, f64, batch, model
+    torch.cuda.empty_cache()
+
+    # --- the trainer at the config's batch 8, with and without remat
+    with open(STT_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    train = {}
+    for name, batch_size, remat in (("b8", 8, None), ("b8_remat", 8, "dots"),
+                                    ("b1_remat", 1, "dots"), ("b1", 1, None)):
+        ms, losses, peak, model, opt = ann_trainer(
+            torch, root, name, raw,
+            loader={"batch_size": batch_size, "n_workers": 4},
+            optimizer={"remat": remat})
+        p50, p90 = (float(v) for v in np.percentile(ms[2:], [50, 90]))
+        dev_step = None
+        if name == "b8":
+            b = train_batch(torch, dev, hw, SEED + 135, batch=batch_size,
+                            bins=bins)
+            _, step = ann_step(torch, dev, config, model, SEED + 136)
+            step(b)
+            dev_step = device_ms_per_call(torch, lambda: step(b), 3)
+            del step, b
+        train[name] = dict(p50_ms=p50, p90_ms=p90, peak_mem_gib=peak,
+                           device_ms_per_step=dev_step,
+                           losses=[losses[0], losses[-1]])
+        log(f"[13] trainer STT {name} (f32, TF32 off, batch {batch_size}, "
+            f"remat {remat}) on {card}: step p50 {p50:.2f} ms, p90 "
+            f"{p90:.2f} (after 2 warm-up); peak memory {peak:.2f} GiB"
+            + ("" if dev_step is None else
+               f"; device busy per step {dev_step:.2f} ms")
+            + f"; losses {losses[0]:.4g} -> {losses[-1]:.4g}")
+        del model, opt
+        torch.cuda.empty_cache()
+    out["train"] = train
+
+    # --- eval_dsec on a doubleseq tree
+    out["eval"] = stt_eval(torch, dev, root, raw, state_dict)
+    log(f"[13] STT eval_dsec (doubleseq, 480x640 tree, bf16, a reference-"
+        f"named .pt): {out['eval']['metrics']}, within "
+        f"{out['eval']['rel_err_vs_f64']:.3g} of the float64 recompute; "
+        f"{out['eval']['windows_per_s']:.2f} windows/s over the "
+        f"{DSEC_TIMED - 1} after the first (batch 1, the split cycled to "
+        f"{DSEC_TIMED} windows; host clock) on {card}; results those of the "
+        f"{DSEC_VALID}-window run")
+
+    # --- STTFlowNet_4en at the MDR geometry: bf16 forward, f32 train step
+    config, model = ann_model(torch, dev, STT_MDR_CONFIG, SEED + 137)
+    hw4, bins4 = tuple(config["loader"]["crop"]), config["model"]["num_bins"]
+    x = torch.from_numpy(np.stack(voxel_requests(1, bins4, hw4,
+                                                 SEED + 138))).to(dev)
+    kw = dict(polarity=False, norm_input=config["model"]["norm_input"])
+    with torch.no_grad():
+        f32 = make_eval_step(model, **kw)(x)
+        bf16 = make_eval_step(model, **kw, compute_dtype=torch.bfloat16)(x)
+    check(len(bf16) == 4 and all(f.shape == (1, 2) + hw4
+                                 and bool(torch.isfinite(f).all())
+                                 for f in bf16), "[13] STT_4en bf16 flows")
+    epe4 = epe_share(bf16[-1].cpu(), f32[-1].cpu())
+    check(epe4 <= ANN_BF16_EPE, f"[13] STT_4en bf16 vs f32 EPE {epe4:.3g}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _, step = ann_step(torch, dev, config, model, SEED + 139)
+    loss = float(step(train_batch(torch, dev, hw4, SEED + 140,
+                                  bins=bins4))["loss"])
+    moved = sum(not torch.equal(before[k], v)
+                for k, v in model.state_dict().items())
+    check(np.isfinite(loss) and moved > 0.9 * len(before),
+          f"[13] STT_4en train step: loss {loss}, {moved} of {len(before)} "
+          "entries moved")
+    out["stt_4en"] = dict(bf16_epe_share=epe4, train_loss=loss)
+    log(f"[13] STTFlowNet_4en (depths (2,2,6,2), window (2,8,8), patch "
+        f"(5,4,4)) at {hw4[0]}x{hw4[1]}, {bins4} bins: bf16 forward, 4 flows "
+        f"finite, EPE {epe4:.3g} of the mean |flow| against f32; f32 train "
+        f"step loss {loss:.4g}, {moved} of {len(before)} entries moved")
+    del model, step, before
+
+    # --- MultiResUNet: f32 against float64
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.training.config import build_configs
+    unet = get_model("MultiResUNet", {"num_bins": 10, "base_num_channels": 32,
+                                      "num_encoders": 4, "kernel_size": 5},
+                     *build_configs(config)[1:])
+    randomize_(unet, torch.Generator().manual_seed(SEED + 141))
+    x = torch.from_numpy(np.stack(voxel_requests(1, 10, hw, SEED + 142)))
+    f32, err = f64_rel_err(torch, unet.to(dev), x.to(dev))
+    check(len(f32) == 4 and err <= ANN_F32_TOL,
+          f"[13] MultiResUNet f32 vs float64: {err:.3g}")
+    out["unet_f32_vs_f64"] = err
+    log(f"[13] MultiResUNet (base 32, 4 encoders, kernel 5) at {hw[0]}x"
+        f"{hw[1]}: f32 vs float64 largest |d| {err:.3g} of the largest "
+        f"|flow|")
+    del unet
+    launched = {k: w.launches for k, w in kernel_wrappers().items()}
+    check(not any(launched.values()),
+          f"[13] the ANN paths launched kernels: {launched}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["kernel_launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[13] no kernel of the port launched on the ANN paths ({launched}); "
+        f"phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3147,6 +3674,7 @@ def main() -> int:
         tr = phase_train(torch, dev, config, state_dict, card)
         emb = phase_embed(torch, dev, config, state_dict, card)
         dsec = phase_dsec_eval(torch, dev, config, state_dict, card)
+        ann = phase_ann(torch, dev, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3162,7 +3690,8 @@ def main() -> int:
     # launches: the raw-events path's run (phase 6); K1 and K2 also give
     # the voxel path's (phase 5); K2b per train step (phase 9); K4, K4a and
     # K2c the fused-embed path's counted run (phase 10; no path runs K2c);
-    # K1, K2 and K3 also each eval_dsec run's (phase 12, 4 windows)
+    # K1, K2 and K3 also each eval_dsec run's (phase 12, 4 windows); the
+    # ANN paths (phase 13) launch none
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -3251,6 +3780,9 @@ def main() -> int:
          "bound_by": emb["k2c"]["bound_by"], "library_ms": None,
          "flip_share": emb["k2c"]["flip_share"]},
     ]
+    for entry, key in zip(kernels, ("K1", "K2", "K2b", "K3", "K4", "K4a",
+                                    "K2c")):
+        entry["launches_ann_paths"] = ann["kernel_launches"][key]
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -3266,6 +3798,7 @@ def main() -> int:
     log(json.dumps({"embed": {k: v for k, v in emb.items()
                               if k not in ("k4", "k4a", "k2c")}}))
     log(json.dumps({"dsec_eval": dsec}))
+    log(json.dumps({"ann": ann}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

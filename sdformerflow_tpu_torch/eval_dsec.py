@@ -38,7 +38,8 @@ from .data.dsec import (DSECDatasetLite, DSECEventListDataset,
                         batch_iterator)
 from .models.registry import get_model
 from .training.checkpoints import restore_checkpoint
-from .training.config import build_configs, load_config, merge_eval_config
+from .training.config import (build_configs, chunk_bins, load_config,
+                              merge_eval_config)
 from .training.evaluate import MetricsAccumulator, make_metrics_fn
 from .training.s2d_embed import s2d_embed_state_dict
 from .training.torch_interop import (load_reference_state_dict,
@@ -192,7 +193,8 @@ def main(argv=None) -> dict:
 
     model_cfg, swin_cfg, spiking_cfg = build_configs(config)
     name = config["model"]["name"]
-    model = get_model(name, model_cfg, swin_cfg, spiking_cfg)
+    model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
+                      input_bins=chunk_bins(config))
     if args.ckpt:
         _, epoch = restore_checkpoint(args.ckpt, model)
         print(f"restored checkpoint epoch {epoch}")

@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class SpikingConfig:
@@ -52,3 +54,10 @@ class SwinConfig:
 
     def replace(self, **kw) -> "SwinConfig":
         return dataclasses.replace(self, **kw)
+
+
+def trunc_normal_02_(t: torch.Tensor) -> torch.Tensor:
+    """flax ``truncated_normal(stddev=0.02, lower=-2, upper=2)``: N(0, 0.02)
+    cut at two standard deviations (the JAX ANN's Dense and bias-table
+    init)."""
+    return torch.nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04)

@@ -1,11 +1,16 @@
 """Model registry, mirror of ``sdformerflow_tpu/models/registry.py`` for the
-ported names, plus the seeded randomization the slice runs on (the repo has
-no trained checkpoint).
+ported names (the en4 SNN and the ANN family), plus the seeded
+randomization the port's checks run on (the repo has no trained
+checkpoint).
+
+``input_bins`` (``training.config.chunk_bins``: ``data.num_frames *
+data.num_chunks``) is the bin count of the chunks an STTFlowNet will take;
+torch needs it at construction. The other models ignore it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -23,11 +28,16 @@ def register_model(name: str):
 
 
 def get_model(name: str, model_cfg: dict, swin_cfg: SwinConfig,
-              spiking_cfg: SpikingConfig, *, train: bool = False) -> nn.Module:
-    """Build a registered model, in eval mode unless ``train``."""
+              spiking_cfg: SpikingConfig, *, train: bool = False,
+              input_bins: Optional[int] = None) -> nn.Module:
+    """Build a registered model, in eval mode unless ``train``;
+    ``input_bins`` the bins of the chunks it will take (default
+    ``model.num_bins``)."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: "
                        f"{sorted(MODEL_REGISTRY)}")
+    if input_bins is not None:
+        model_cfg = dict(model_cfg, input_bins=input_bins)
     return MODEL_REGISTRY[name](model_cfg, swin_cfg, spiking_cfg).train(train)
 
 
@@ -42,6 +52,48 @@ def _mssf4(model_cfg, swin_cfg, spiking_cfg):
         num_encoders=4,
         use_upsample_conv=model_cfg.get("use_upsample_conv", False),
         ms=True)
+
+
+def _sttflownet(model_cfg, swin_cfg, spiking_cfg, *, num_en):
+    from .ann_flownet import STTFlowNet
+    # the reference's ANN constructors never pass qk_scale, so the ANN attention
+    # always scales by head_dim ** -0.5; the config's 0.125 default is the
+    # SNN backbone's and must not reach the ANN
+    return STTFlowNet(
+        swin=swin_cfg.replace(qk_scale=None),
+        num_bins=model_cfg.get("num_bins", 10),
+        base_num_channels=model_cfg.get("base_num_channels", 96),
+        kernel_size=model_cfg.get("kernel_size", 3),
+        num_encoders=num_en,
+        use_upsample_conv=model_cfg.get("use_upsample_conv", True),
+        norm=model_cfg.get("norm"),
+        final_activation=model_cfg.get("final_activation"),
+        norm_input=bool(model_cfg.get("norm_input", False)),
+        encoding=model_cfg.get("encoding", "voxel"),
+        input_bins=model_cfg.get("input_bins"))
+
+
+@register_model("STTFlowNet")
+def _stt(model_cfg, swin_cfg, spiking_cfg):
+    return _sttflownet(model_cfg, swin_cfg, spiking_cfg, num_en=3)
+
+
+@register_model("STTFlowNet_4en")
+def _stt4(model_cfg, swin_cfg, spiking_cfg):
+    return _sttflownet(model_cfg, swin_cfg, spiking_cfg, num_en=4)
+
+
+@register_model("MultiResUNet")
+def _mru(model_cfg, swin_cfg, spiking_cfg):
+    from .ann_flownet import MultiResUNetFlow
+    return MultiResUNetFlow(
+        num_bins=model_cfg.get("num_bins", 10),
+        base_num_channels=model_cfg.get("base_num_channels", 32),
+        num_encoders=model_cfg.get("num_encoders", 4),
+        kernel_size=model_cfg.get("kernel_size", 5),
+        norm=model_cfg.get("norm"),
+        use_upsample_conv=model_cfg.get("use_upsample_conv", True),
+        final_activation=model_cfg.get("final_activation"))
 
 
 @torch.no_grad()

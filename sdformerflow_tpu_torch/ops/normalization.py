@@ -49,12 +49,17 @@ def spike_binarize(x: torch.Tensor, threshold: float) -> torch.Tensor:
 
 
 def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
-                 polarity: bool = True, norm_input: str | None = "minmax",
+                 polarity: bool = True, norm_input="minmax",
                  spike_th: float | None = None) -> torch.Tensor:
     """polarity split -> nonzero normalize -> optional binarize.
 
+    ``norm_input`` ``"minmax"`` or ``"std"`` normalizes; any other value
+    (``None``, ``True`` as the STT configs set it, ...) leaves the chunk as
+    it is, as JAX's ``encode_input`` does.
+
     ``chunk``: [B, bins, H, W] signed voxels (``polarity=True``) or
-    [B, bins, 2, H, W]. Returns [B, bins, 2, H, W].
+    [B, bins, 2, H, W]. Returns [B, bins, 2, H, W] (with ``polarity``
+    false, a voxel chunk keeps its [B, bins, H, W]: the ANN's input).
     """
     if encoding not in ("voxel", "cnt"):
         raise ValueError(f"unsupported encoding {encoding!r}")
@@ -64,8 +69,6 @@ def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
         chunk = normalize_nonzero_minmax(chunk)
     elif norm_input == "std":
         chunk = normalize_nonzero_std(chunk)
-    elif norm_input is not None:
-        raise NotImplementedError(f"norm_input {norm_input!r} is not ported")
     if spike_th is not None:
         chunk = spike_binarize(chunk, spike_th)
     return chunk

@@ -19,6 +19,12 @@ padded to power-of-two buckets (:func:`next_bucket`).
 ``s2d=True`` serves the exact space-to-depth re-expression of the embed
 head (``training/s2d_embed.py``), as the JAX server's option does.
 
+The ANN family (STTFlowNet, MultiResUNet) is served from voxel requests of
+its chunk's bins (``data.num_frames * data.num_chunks``, 20 for the DSEC
+STT config). Events are voxelized into ``data.num_frames`` bins, as in
+JAX, so where the model takes another count (the STT configs' two chunks)
+an events request fails with a ``ValueError`` that says so.
+
 Not ported: mesh batching (one request is one batch-1 forward), the
 fused-attention option (the port's eval attention always runs K1), and the
 HTTP wrapper ``scripts/serve.py``.
@@ -38,7 +44,7 @@ import torch
 from . import native
 from .models.registry import get_model
 from .training.checkpoints import restore_checkpoint
-from .training.config import build_configs
+from .training.config import build_configs, chunk_bins
 from .training.s2d_embed import s2d_embed_state_dict
 from .training.train_step import make_eval_step
 
@@ -77,7 +83,9 @@ class FlowServer:
             raise ValueError("give state_dict or ckpt, not both")
         model_cfg, swin_cfg, spiking_cfg = build_configs(config)
         name = config["model"]["name"]
-        model = get_model(name, model_cfg, swin_cfg, spiking_cfg)
+        self._input_bins = chunk_bins(config)
+        model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
+                          input_bins=self._input_bins)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         if ckpt is not None:
@@ -155,7 +163,7 @@ class FlowServer:
         smallest up to it), so that the first requests of real traffic do
         not pay for kernel builds and allocations."""
         h, w = self._crop or self._resolution
-        self.infer(np.zeros((self._num_bins, h, w), np.float32))
+        self.infer(np.zeros((self._input_bins, h, w), np.float32))
         if n_events is None:
             return
         top = next_bucket(n_events)
@@ -237,6 +245,13 @@ class FlowServer:
         """Upload one request and launch its forward; returns the flows on
         the device (launched, not waited for)."""
         if isinstance(request, dict):
+            if self._input_bins != self._num_bins:
+                raise ValueError(
+                    f"events are voxelized into data.num_frames = "
+                    f"{self._num_bins} bins but the model takes "
+                    f"{self._input_bins}-bin chunks (data.num_chunks = "
+                    f"{self._input_bins // self._num_bins}): send voxel "
+                    "chunks")
             dev = self.pack_events(request).to(self.device, non_blocking=True)
             return self._events_step({
                 "x": dev[:, 0], "y": dev[:, 1], "t": dev[:, 2],

@@ -123,3 +123,10 @@ def build_configs(config: dict):
         drop_path_rate=float(st.get("drop_path_rate", 0.2)),
     )
     return model, swin, spiking
+
+
+def chunk_bins(config: dict) -> int:
+    """The bins of a data chunk: ``data.num_frames`` per chunk times
+    ``data.num_chunks`` (an STTFlowNet's input path follows from it)."""
+    data = config.get("data", {})
+    return int(data.get("num_frames", 10)) * int(data.get("num_chunks", 1))

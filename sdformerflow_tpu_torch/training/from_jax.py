@@ -8,7 +8,10 @@ The port's module tree has the flax tree's names, so a flax leaf at
 - Conv kernel HWIO -> OIHW;
 - transposed-conv kernel ``(kh, kw, I, O)`` -> ``(I, O, kh, kw)``;
 - BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
-- PSN weight [T, T] / bias [T, 1] and positional encodings pass through.
+- LayerNorm and GroupNorm (the ANN's instance norm) scale/bias ->
+  weight/bias;
+- PSN weight [T, T] / bias [T, 1], positional encodings, the ANN's
+  relative-position-bias tables and ``logit_scale`` pass through.
 
 Input: ``{"params": ..., "batch_stats": ...}`` as nested mappings of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, variables)``). Any leaf with
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.ann_layers import InstanceNorm
 from ..models.spiking_layers import Conv2d, TorchBatchNorm, TorchConvTranspose
 
 _BN_NAMES = {("params", "scale"): "weight", ("params", "bias"): "bias",
@@ -51,6 +55,9 @@ def _convert(module: nn.Module, coll: str, leaf: str, arr: np.ndarray):
         return None if name is None else (name, arr)
     if coll != "params":
         return None
+    if isinstance(module, (nn.LayerNorm, InstanceNorm)):
+        name = {"scale": "weight", "bias": "bias"}.get(leaf)
+        return None if name is None else (name, arr)
     if leaf == "kernel":
         for cls, layout in _KERNELS:
             if isinstance(module, cls):
@@ -75,11 +82,12 @@ def from_jax(variables: Mapping, model: nn.Module) -> dict:
             module = modules.get(mod_name)
             converted = None if module is None else _convert(module, coll,
                                                              leaf, arr)
-            key = converted and f"{mod_name}.{converted[0]}"
+            key = converted and ".".join(filter(None, (mod_name,
+                                                       converted[0])))
             if key not in targets:
                 raise KeyError(f"JAX variable {coll}/{'/'.join(path)} has no "
                                "counterpart in the port")
-            value = np.ascontiguousarray(converted[1])
+            value = np.array(converted[1], order="C")
             if tuple(value.shape) != tuple(targets[key].shape):
                 raise ValueError(f"{key}: shape {value.shape} vs "
                                  f"{tuple(targets[key].shape)}")

@@ -1,25 +1,30 @@
 """Checkpoints under the reference's state_dict names -> the port, and
-back: the port's own copy of the SNN rules of
-``sdformerflow_tpu/training/torch_interop.py``.
+back: the port's own copy of the rules of
+``sdformerflow_tpu/training/torch_interop.py``, for the SNN
+(``MS_SpikingformerFlowNet*``), the ANN STTFlowNet family and the ANN
+MultiResUNet; the family is chosen from the model.
 
 A rule maps a reference key (the module tree of
 ``MS_SpikingformerFlowNet*``) to a flax variable path and a layout:
 
 - Conv2d weight OIHW -> HWIO; ConvTranspose2d (I, O, kh, kw) ->
-  (kh, kw, I, O); Linear [out, in] -> [in, out];
+  (kh, kw, I, O); Linear [out, in] -> [in, out]; the STT projections, 1x1
+  convs [O, I, 1, 1] in the reference, -> Dense [I, O];
 - BatchNorm weight/bias -> scale/bias (params), running_mean/var ->
   mean/var (batch_stats);
-- PSN ``spiking_neuron.weight``/``bias``, PLIF ``w``, positional encodings
-  and relative-position-bias tables pass through.
+- LayerNorm weight/bias -> scale/bias;
+- PSN ``spiking_neuron.weight``/``bias``, PLIF ``w``, positional encodings,
+  relative-position-bias tables and ``logit_scale`` pass through.
 
 ``convert_state_dict`` gives the flax tree, which ``from_jax`` turns into
 the port's state_dict (whose module tree has the flax names);
 ``load_reference_state_dict`` composes the two. The port keeps the
-reference's layouts (``from_jax`` undoes each rule's transform), so
-``to_reference_state_dict``, the inverse, only renames.
+reference's layouts (``from_jax`` undoes each rule's transform) but for
+the STT projections (Linear [O, I] for the reference's [O, I, 1, 1]), so
+``to_reference_state_dict``, the inverse, renames and restores those.
 
-Not ported: the ANN and U-Net rules and the GLIF packing (no such model in
-the port).
+The ANN rules cover the ``PatchEmbedLocal`` embed, as JAX's do. Not
+ported: the GLIF packing (no such model in the port).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.ann_flownet import MultiResUNetFlow, STTFlowNet
+from ..models.ann_layers import InstanceNorm
 from ..models.spiking_layers import Conv2d, TorchBatchNorm, TorchConvTranspose
 from .from_jax import from_jax
 
@@ -38,6 +45,7 @@ _TRANSFORMS = {
     "conv": lambda a: a.transpose(2, 3, 1, 0),
     "deconv": lambda a: a.transpose(2, 3, 0, 1),
     "linear": lambda a: a.T,
+    "conv1x1": lambda a: a[..., 0, 0].T,   # [O, I, 1, 1] -> [I, O]
     "id": lambda a: a,
 }
 
@@ -196,15 +204,125 @@ def build_rules(num_stages=4, max_depth=8, num_res=2, num_encoders=4,
     return R
 
 
-def convert_state_dict(state_dict: Dict[str, np.ndarray], num_stages=4,
-                       max_depth=8, num_encoders=4) -> Tuple[dict, dict, list]:
-    """Reference state_dict -> (params, batch_stats, unmatched keys): the
-    ``module.`` prefix of DataParallel checkpoints stripped,
-    ``num_batches_tracked`` and the membrane state ``.spiking_neuron.v``
-    skipped."""
-    rules = {t: (coll, path, tr) for t, coll, path, tr in build_rules(
-        num_stages=num_stages, max_depth=max_depth,
-        num_encoders=num_encoders)}
+def _layernorm_rule(t, f):
+    return [(f"{t}.weight", "params", f"{f}/scale", "id"),
+            (f"{t}.bias", "params", f"{f}/bias", "id")]
+
+
+def _ann_norm_rule(t, f):
+    """A BatchNorm2d attribute of an ANN layer (torch) -> its Norm2d's
+    TorchBatchNorm (flax, auto-named ``BatchNorm_0``)."""
+    return _norm_rule(t, f"{f}/BatchNorm_0", direct=True)
+
+
+def _ann_conv_rule(t, f, kind="conv"):
+    return [(f"{t}.weight", "params", f"{f}/kernel", kind),
+            (f"{t}.bias", "params", f"{f}/bias", "id")]
+
+
+def _ann_resblock_rule(t, f):
+    R = _ann_conv_rule(f"{t}.conv1", f"{f}/conv1") \
+        + _ann_conv_rule(f"{t}.conv2", f"{f}/conv2")
+    for n in ("bn1", "bn2"):
+        R += _ann_norm_rule(f"{t}.{n}", f"{f}/{n}")
+    return R
+
+
+def _ann_decoder_rules(root_t, root_f, num_encoders, num_res=2):
+    """Bottleneck resblocks, decoders (upsample conv or transposed conv,
+    with their BN) and prediction heads of the ANN U-Nets."""
+    R = []
+    for i in range(num_res):
+        R += _ann_resblock_rule(f"{root_t}resblocks.{i}",
+                                f"{root_f}resblock{i}")
+    for i in range(num_encoders):
+        t, f = f"{root_t}decoders.{i}", f"{root_f}decoder{i}"
+        R += _ann_conv_rule(f"{t}.conv2d", f"{f}/conv2d")
+        R += _ann_conv_rule(f"{t}.transposed_conv2d",
+                            f"{f}/transposed_conv2d", "deconv")
+        R += _ann_norm_rule(f"{t}.norm_layer", f"{f}/norm_layer")
+        R += _ann_conv_rule(f"{root_t}preds.{i}.conv2d",
+                            f"{root_f}pred{i}/conv2d")
+    return R
+
+
+def build_ann_rules(num_stages=3, max_depth=8, num_encoders=3,
+                    num_blocks=2) -> list:
+    """The rule list of the ANN STTFlowNet family (the reference's
+    ``STSwinNet.py`` module tree)."""
+    R = []
+    root_t = root_f = "sttmultires_unet"
+    sw_t = f"{root_t}.encoders.swin3d"
+    sw_f = f"{root_f}/encoders/swin3d"
+    pe_t, pe_f = f"{sw_t}.patch_embed", f"{sw_f}/patch_embed"
+    R += _ann_conv_rule(f"{pe_t}.head", f"{pe_f}/head")
+    R += _ann_conv_rule(f"{pe_t}.proj", f"{pe_f}/proj")
+    for r in range(1, 5):
+        R += _ann_resblock_rule(f"{pe_t}.residual_encoding.resblock{r}",
+                                f"{pe_f}/residual_encoding/resblock{r}")
+    for i in range(num_stages):
+        st_t, st_f = f"{sw_t}.layers.{i}", f"{sw_f}/stage{i}"
+        for j in range(max_depth):
+            b_t, b_f = f"{st_t}.swin_blocks.{j}", f"{st_f}/block{j}"
+            R += _layernorm_rule(f"{b_t}.norm1", f"{b_f}/norm1")
+            R += _layernorm_rule(f"{b_t}.norm2", f"{b_f}/norm2")
+            a_t, a_f = f"{b_t}.attn", f"{b_f}/attn"
+            R += [(f"{a_t}.qkv.weight", "params", f"{a_f}/qkv/kernel",
+                   "linear"),
+                  (f"{a_t}.qkv.bias", "params", f"{a_f}/qkv/bias", "id"),
+                  (f"{a_t}.proj.weight", "params", f"{a_f}/proj/kernel",
+                   "linear"),
+                  (f"{a_t}.proj.bias", "params", f"{a_f}/proj/bias", "id"),
+                  (f"{a_t}.relative_position_bias_table", "params",
+                   f"{a_f}/relative_position_bias_table", "id"),
+                  (f"{a_t}.logit_scale", "params", f"{a_f}/logit_scale",
+                   "id"),
+                  (f"{a_t}.cpb_mlp.0.weight", "params",
+                   f"{a_f}/cpb_fc1/kernel", "linear"),
+                  (f"{a_t}.cpb_mlp.0.bias", "params", f"{a_f}/cpb_fc1/bias",
+                   "id"),
+                  (f"{a_t}.cpb_mlp.2.weight", "params",
+                   f"{a_f}/cpb_fc2/kernel", "linear")]
+            for fc in ("fc1", "fc2"):
+                R += [(f"{b_t}.mlp.{fc}.weight", "params",
+                       f"{b_f}/mlp/{fc}/kernel", "linear"),
+                      (f"{b_t}.mlp.{fc}.bias", "params",
+                       f"{b_f}/mlp/{fc}/bias", "id")]
+        R += _layernorm_rule(f"{st_t}.downsample.norm",
+                             f"{st_f}/downsample/norm")
+        R += [(f"{st_t}.downsample.reduction.weight", "params",
+               f"{st_f}/downsample/reduction/kernel", "linear")]
+        R += _layernorm_rule(f"{sw_t}.norm{i}", f"{sw_f}/norm{i}")
+    for i in range(num_stages):
+        for k in range(num_blocks):
+            R += [(f"{root_t}.encoders.projections.{i}.{k}.weight", "params",
+                   f"{root_f}/encoders/proj{i}_{k}/kernel", "conv1x1"),
+                  (f"{root_t}.encoders.projections.{i}.{k}.bias", "params",
+                   f"{root_f}/encoders/proj{i}_{k}/bias", "id")]
+    return R + _ann_decoder_rules(f"{root_t}.", f"{root_f}/", num_encoders)
+
+
+def build_unet_rules(num_encoders=4, num_res=2) -> list:
+    """The rule list of the ANN MultiResUNet: ``encoders.{i}``,
+    ``resblocks.{i}``, ``decoders.{i}``, ``preds.{i}`` -> ``encoder{i}``,
+    ``resblock{i}``, ``decoder{i}``, ``pred{i}``. The torch names are
+    derived from the flax tree in the pattern of the STT rules; no
+    reference MultiResUNet state_dict has been checked against them."""
+    R = []
+    for i in range(num_encoders):
+        R += _ann_conv_rule(f"encoders.{i}.conv2d", f"encoder{i}/conv2d")
+        R += _ann_norm_rule(f"encoders.{i}.norm_layer",
+                            f"encoder{i}/norm_layer")
+    return R + _ann_decoder_rules("", "", num_encoders, num_res)
+
+
+def convert_with_rules(state_dict: Dict[str, np.ndarray],
+                       rules) -> Tuple[dict, dict, list]:
+    """Reference state_dict -> (params, batch_stats, unmatched keys) under
+    a rule list: the ``module.`` prefix of DataParallel checkpoints
+    stripped, ``num_batches_tracked`` and the membrane state
+    ``.spiking_neuron.v`` skipped."""
+    rules = {t: (coll, path, tr) for t, coll, path, tr in rules}
     params: dict = {}
     batch_stats: dict = {}
     unmatched = []
@@ -224,6 +342,14 @@ def convert_state_dict(state_dict: Dict[str, np.ndarray], num_stages=4,
             node = node.setdefault(p, {})
         node[parts[-1]] = _TRANSFORMS[tr](np.asarray(val))
     return params, batch_stats, unmatched
+
+
+def convert_state_dict(state_dict: Dict[str, np.ndarray], num_stages=4,
+                       max_depth=8, num_encoders=4) -> Tuple[dict, dict, list]:
+    """Reference SNN state_dict -> (params, batch_stats, unmatched keys)."""
+    return convert_with_rules(state_dict, build_rules(
+        num_stages=num_stages, max_depth=max_depth,
+        num_encoders=num_encoders))
 
 
 def flax_to_torch_key(coll: str, path: str, num_stages=4, max_depth=8,
@@ -255,24 +381,31 @@ def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
             if isinstance(v, torch.Tensor)}
 
 
-def _depths(model: nn.Module):
-    """The rule-list sizes of ``model``: its stages, its deepest stage's
-    blocks, its decoders."""
+def model_rules(model: nn.Module) -> list:
+    """The rule list of ``model``'s family, sized to it (stages, the
+    deepest stage's blocks, decoders, time groups)."""
+    if isinstance(model, MultiResUNetFlow):
+        return build_unet_rules(num_encoders=model.num_encoders,
+                                num_res=model.num_residual_blocks)
     found = [tuple(map(int, m.groups())) for m in map(
         re.compile(r"\.stage(\d+)\.block(\d+)\.").search, model.state_dict())
         if m]
-    return dict(num_stages=1 + max(i for i, _ in found),
-                max_depth=1 + max(j for _, j in found),
-                num_encoders=model.sttmultires_unet.num_encoders)
+    unet = model.sttmultires_unet
+    kw = dict(num_stages=1 + max(i for i, _ in found),
+              max_depth=1 + max(j for _, j in found),
+              num_encoders=unet.num_encoders)
+    if isinstance(model, STTFlowNet):
+        return build_ann_rules(**kw, num_blocks=unet.encoders.num_blocks)
+    return build_rules(**kw)
 
 
 def load_reference_state_dict(state_dict: Dict[str, np.ndarray],
                               model: nn.Module) -> Tuple[dict, list]:
     """Reference-named state_dict -> (``model``'s state_dict, unmatched
-    reference keys). Every entry of ``model`` is filled, or ``from_jax``
-    raises ``KeyError``."""
-    params, batch_stats, unmatched = convert_state_dict(state_dict,
-                                                        **_depths(model))
+    reference keys), by the rules of ``model``'s family. Every entry of
+    ``model`` is filled, or ``from_jax`` raises ``KeyError``."""
+    params, batch_stats, unmatched = convert_with_rules(state_dict,
+                                                        model_rules(model))
     return from_jax({"params": params, "batch_stats": batch_stats},
                     model), unmatched
 
@@ -287,6 +420,9 @@ def _flax_name(module: nn.Module, leaf: str) -> Tuple[str, str]:
     if leaf == "weight" and isinstance(module, (Conv2d, TorchConvTranspose,
                                                 nn.Linear)):
         return "params", "kernel"
+    if leaf == "weight" and isinstance(module, (nn.LayerNorm,
+                                                InstanceNorm)):
+        return "params", "scale"
     return "params", leaf
 
 
@@ -295,7 +431,7 @@ def to_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     :func:`load_reference_state_dict`); raises ``KeyError`` for an entry
     no rule covers."""
     modules = dict(model.named_modules())
-    rules = {(c, f): t for t, c, f, _ in build_rules(**_depths(model))}
+    rules = {(c, f): (t, tr) for t, c, f, tr in model_rules(model)}
     out = {}
     for key, val in model.state_dict().items():
         mod_name, leaf = key.rsplit(".", 1)
@@ -304,5 +440,6 @@ def to_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
         if (coll, path) not in rules:
             raise KeyError(f"port entry {key} ({coll}/{path}) has no "
                            "reference name")
-        out[rules[(coll, path)]] = val
+        name, tr = rules[(coll, path)]
+        out[name] = val[:, :, None, None] if tr == "conv1x1" else val
     return out

@@ -17,7 +17,12 @@
   epoch in progress and returns; ``resume=True`` continues at the next
   epoch.
 
-Not ported: the device mesh and multi-host sharding (one card), remat.
+``optimizer.remat`` ("dots", "dots_no_batch", "all") rematerializes the
+train step's forward in the backward (``train_step.rematerialized``). JAX's
+guard against remat at per-device batch >= 8 is not copied: it records an
+out-of-memory crash of a TPU worker, not a fact about a GPU.
+
+Not ported: the device mesh and multi-host sharding (one card).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from ..models.registry import get_model
 from ..ops.normalization import encode_input
 from ..utils.logging import RunLogger, count_parameters
 from .checkpoints import restore_checkpoint, save_checkpoint
-from .config import build_configs
+from .config import build_configs, chunk_bins
 from .evaluate import event_footprint_mask
 from .optim import build_optimizer
 from .train_step import make_eval_step, make_train_step
@@ -92,9 +97,6 @@ def _train(config, train_dataset, valid_dataset, *, run_dir, resume,
     model_cfg, swin_cfg, spiking_cfg = build_configs(config)
     loader, loss_cfg = config["loader"], config["loss"]
     opt_cfg, name = config["optimizer"], config["model"]["name"]
-    if opt_cfg.get("remat"):
-        raise NotImplementedError("optimizer.remat is not ported (measured "
-                                  "negative for the SNN in the JAX package)")
     seed = loader.get("seed", 0)
     voxelize = _events_voxelize_cfg(config, train_dataset)
     if voxelize is not None:
@@ -102,8 +104,8 @@ def _train(config, train_dataset, valid_dataset, *, run_dir, resume,
         swin_cfg = swin_cfg.replace(
             input_size=(voxelize["height"], voxelize["width"]))
     torch.manual_seed(seed)
-    model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
-                      train=True).to(device)
+    model = get_model(name, model_cfg, swin_cfg, spiking_cfg, train=True,
+                      input_bins=chunk_bins(config)).to(device)
     batch_size = loader["batch_size"]
     steps_per_epoch = max(len(train_dataset) // batch_size, 1)
     optimizer = build_optimizer(
@@ -136,7 +138,7 @@ def _train(config, train_dataset, valid_dataset, *, run_dir, resume,
         gamma=loss_cfg.get("gamma"),
         mask_events=config["metrics"].get("mask_events", False),
         compute_dtype=torch.bfloat16 if opt_cfg.get("use_amp") else None,
-        voxelize=voxelize,
+        voxelize=voxelize, remat=opt_cfg.get("remat"),
         generator=torch.Generator(device).manual_seed(seed + 1))
     eval_step = make_eval_step(model, **kw, voxelize=voxelize,
                                use_batch_stats=batch_size == 1)

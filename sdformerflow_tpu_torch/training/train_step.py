@@ -9,6 +9,7 @@ device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -16,12 +17,12 @@ import torch.nn as nn
 
 from ..losses import flow_loss_supervised
 from ..models.spiking_layers import TorchBatchNorm
-from ..models.spiking_swin import SpikingSwinBlock3D
 from ..ops.hopper_embed import fused_embed_forward
 from ..ops.hopper_voxel import voxel_k3
 from ..ops.normalization import encode_input
 from ..ops.voxel import voxel_grid_signed
 from .evaluate import event_footprint_mask
+from .remat import Remat
 
 
 def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -80,7 +81,7 @@ def _set_mode(model: nn.Module, *, train: bool, update_bn_stats: bool = True,
     for m in model.modules():
         if isinstance(m, TorchBatchNorm):
             m.update_running_stats = update_bn_stats
-        elif isinstance(m, SpikingSwinBlock3D):
+        elif hasattr(m, "drop_path_generator"):
             m.drop_path_generator = generator
 
 
@@ -121,12 +122,13 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     ``compute_dtype`` (e.g. bf16) runs forward and backward on parameters
     and activations cast to it, the master parameters staying in their
     dtype and the BN statistics in >= float32; the flows and the loss are
-    computed in >= float32. Remat is not ported (the JAX loop found it
-    negative for the SNN): setting ``remat`` raises.
+    computed in >= float32.
+
+    ``remat`` ("dots", "dots_no_batch", "all") runs the forward under
+    :class:`training.remat.Remat`: the backward recomputes each block but
+    for what the policy keeps, with the forward's drop-path masks, so the
+    gradients are those of the plain step (the ANN family).
     """
-    if remat is not None:
-        raise NotImplementedError("remat is not ported (measured negative "
-                                  "for the SNN in the JAX package)")
     params = dict(model.named_parameters())
     param_dtype = next(iter(params.values())).dtype
     kw = dict(encoding=encoding, polarity=polarity, norm_input=norm_input,
@@ -139,6 +141,9 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
         return torch.func.functional_call(model, cast,
                                           (x.to(compute_dtype),))["flow"]
 
+    rematerialized = (contextlib.nullcontext() if remat is None
+                      else Remat(model, remat, generator))
+
     def train_step(batch):
         _set_mode(model, train=True, generator=generator)
         chunk = batch["events"] if "events" in batch else batch["chunk"]
@@ -147,11 +152,14 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
         if mask_events:
             mask = event_footprint_mask(mask, x)
         optimizer.zero_grad()
-        flows = [f.to(torch.promote_types(f.dtype, torch.float32))
-                 for f in forward(x)]
+        with rematerialized:
+            flows = [f.to(torch.promote_types(f.dtype, torch.float32))
+                     for f in forward(x)]
         loss = flow_loss_supervised(flows, batch["label"], mask,
                                     flow_scaling=flow_scaling, gamma=gamma)
         loss.backward()
+        if remat is not None:
+            rematerialized.done()
         grad_norm = optimizer.step()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
@@ -219,7 +227,8 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                 embedded = fused_embed_forward(
                     model.sttmultires_unet.encoders.patch_embed, x,
                     num_steps=num_steps)
-            return [f.float() for f in model(x, embedded)["flow"]]
+            out = model(x, embedded) if fused_embed else model(x)
+            return [f.float() for f in out["flow"]]
 
     eval_step.model = model
     return eval_step

@@ -86,7 +86,7 @@ def test_registry_and_unported_options_raise():
                       num_heads=(2, 2, 2, 2), window_size=(2, 3, 3))
     cfg = SpikingConfig(num_steps=4, v_th=0.1, neuron_type="psn")
     with pytest.raises(KeyError, match="MS_SpikingformerFlowNet_en4"):
-        get_model("STTFlowNet", {}, swin, cfg)
+        get_model("SpikingformerFlowNet", {}, swin, cfg)
     model = get_model("MS_SpikingformerFlowNet_en4",
                       {"num_bins": 4, "base_num_channels": 8}, swin, cfg)
     assert not model.training

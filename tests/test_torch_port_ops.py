@@ -73,6 +73,8 @@ def test_encode_input_matches_jax_f64():
         one[0, 0, 1, 1] = 0.5
         want_one = np.asarray(j_norm.encode_input(jnp.asarray(one),
                                                   norm_input="std"))
+        want_l2 = np.asarray(j_norm.encode_input(jnp.asarray(chunk),
+                                                 norm_input="l2"))
     got = normalization.encode_input(to_torch(chunk)).numpy()
     assert got.shape == (2, 10, 2, 6, 8)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
@@ -89,8 +91,10 @@ def test_encode_input_matches_jax_f64():
     np.testing.assert_array_equal(    # one nonzero value: its std is nan
         normalization.encode_input(to_torch(one), norm_input="std").numpy(),
         want_one)
-    with pytest.raises(NotImplementedError):
-        normalization.encode_input(to_torch(chunk), norm_input="l2")
+    # any other norm_input leaves the chunk as it is, as in JAX
+    np.testing.assert_array_equal(
+        normalization.encode_input(to_torch(chunk), norm_input="l2").numpy(),
+        want_l2)
 
 
 @pytest.mark.parametrize("src,dst", [((72, 96), (288, 384)), ((5, 7), (12, 15)),
