@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, train and DSEC evaluation paths once on
-one NVIDIA H100, for the en4 SNN and the ANN family.
+"""Drive the PyTorch port's serving, train and DSEC evaluation paths and its
+MDR / MVSEC slice once on one NVIDIA H100, for the en4 SNN and the ANN
+family.
 
 Run from the root of the repository, with no arguments:
 
@@ -132,6 +133,30 @@ Phases (any failure exits non-zero):
    forward (EPE bound as above) and a float32 train step; MultiResUNet
    (base 32, 4 encoders, kernel 5) at 288x384: float32 against float64.
    The JSON line ``{"ann": ...}`` before the kernels line holds them.
+
+14. the MDR / MVSEC slice through its entry points, on trees written here
+   at 260x346 by the port's own writers (an MDR ``dt1/train`` split of 8
+   scenes, each 4 ``.npz`` of 2^15 events over 30 ms and a ``.flo`` GT;
+   MVSEC ``outdoor_day1`` and ``indoor_flying1`` ``.h5`` event files of
+   2^15 events, each read back bit for bit, and ``flowgt_dt1`` /
+   ``flowgt_dt4``): ``train_mdr`` with ``configs/train_mdr_sdformerflow.yaml``
+   at full width (batch 4, f32, TF32 off, the augmentor, 2 epochs of 2
+   steps, each validated on outdoor_day1 dt1): K2 and K2b launches each
+   step, K1 in the validations, finite train and valid losses in
+   ``metrics.jsonl``; the run's validation step on the batch-4 chunk it
+   read with every K1 and K2 launch held against its plain twin, and a
+   train step on the run's last batch (batch 4) with every K2b launch held
+   against its float64 twin; the step's p50 / p90, device busy (profiler)
+   and peak memory; ``train_mdr`` with ``configs/train_mdr_stt_voxel.yaml``
+   for 2 steps, launching no kernel; ``eval_mvsec`` with
+   ``configs/eval_mvsec.yaml`` on indoor_flying1 at dt1 and dt4 (64
+   windows each, the en4 run's checkpoint): K1 10 and K2 53 launches a
+   window, the run's eval step on its first window with every K1 and K2
+   launch held against its plain twin, AEE, PE1-3, outlier and AAE within
+   1e-9 of the float64 numpy recompute, windows/s over the 63 windows
+   after the first and a window's read (h5 + host voxelizer), H2D and
+   step + metrics ms. The JSON line ``{"mdr_mvsec": ...}`` before the
+   kernels line holds them.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -1181,6 +1206,32 @@ def checked_kernels(flips):
         flips["K1"][1] += a.numel()
         return A.qk_attn_tail(a, p, nh, x.shape, x.dtype)
     return psn, attend
+
+
+def checked_forward(torch, step, chunk, label):
+    """One forward of ``step`` on ``chunk`` with every K1 and K2 launch held
+    against its plain twin on the same input (no more than MAX_FLIP_SHARE
+    of the output spikes flipped), then the plain twins' forward: with no
+    flipped spike the two finest flows must be identical. Returns the
+    kernel path's finest flow, the K1 and K2 launches, the flips and
+    whether the flows are equal."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    flips = {"K1": [0, 0], "K2": [0, 0]}
+    A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
+    with site_functions(*checked_kernels(flips)):
+        flow = step(chunk)[-1]
+    k1, k2 = A.qk_attn_interior.launches, P.fused_affine_psn.launches
+    with site_functions(*plain_twins()):
+        plain = step(chunk)[-1]
+    for key, (n_flip, n) in flips.items():
+        check(n > 0 and n_flip <= MAX_FLIP_SHARE * n,
+              f"{label}: {key} flipped {n_flip} of {n} spikes")
+    same = torch.equal(flow, plain)
+    if flips["K1"][0] + flips["K2"][0] == 0:
+        check(same, f"{label}: no kernel launch flipped a spike, yet the "
+              "kernel path differs from the plain path")
+    return dict(flow=flow, k1=k1, k2=k2, flips=flips, same=same)
 
 
 def plain_twins(flip_one=False):
@@ -2428,7 +2479,6 @@ def phase_odd_m(torch, dev):
     (batch 1) with every K2b launch, at T = 5 and T = 2, held against its
     twin."""
     from sdformerflow_tpu_torch.models.registry import get_model, randomize_
-    from sdformerflow_tpu_torch.ops import hopper_attn as A
     from sdformerflow_tpu_torch.ops import hopper_psn as P
     from sdformerflow_tpu_torch.training.config import (build_configs,
                                                         load_config)
@@ -2453,19 +2503,13 @@ def phase_odd_m(torch, dev):
     step = make_eval_step(model.to(dev),
                           norm_input=config["model"]["norm_input"],
                           compute_dtype=torch.bfloat16)
-    flips = {"K1": [0, 0], "K2": [0, 0]}
-    A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
-    f = {}
-    with site_functions(*checked_kernels(flips)):
-        ms = window_counts(torch, model, lambda: f.update(
-            kernels=step(chunk)[-1]))
-    k1, k2 = A.qk_attn_interior.launches, P.fused_affine_psn.launches
-    with site_functions(*plain_twins()):
-        f["plain"] = step(chunk)[-1]
+    ms = window_counts(torch, model, lambda: step(chunk))
+    fwd = checked_forward(torch, step, chunk, "odd-M forward")
+    flow, k1, k2, flips, same = (fwd[k] for k in ("flow", "k1", "k2",
+                                                  "flips", "same"))
     odd = [m for m in ms if m % 2]
-    check(f["kernels"].shape == (1, 2) + hw
-          and bool(torch.isfinite(f["kernels"]).all()),
-          f"odd-M forward: flow {tuple(f['kernels'].shape)}")
+    check(flow.shape == (1, 2) + hw and bool(torch.isfinite(flow).all()),
+          f"odd-M forward: flow {tuple(flow.shape)}")
     check(len(ms) == sum(depths) and len(odd) == depths[-1]
           and all(m == ms[-1] for m in odd),
           f"odd-M forward: window counts {ms}, expected odd M at the "
@@ -2473,13 +2517,6 @@ def phase_odd_m(torch, dev):
     check(k1 == len(ms) - len(odd), f"odd-M forward: K1 launched {k1} "
           f"times for {len(ms) - len(odd)} even-M attention sites")
     check(k2 > 0, "odd-M forward: K2 not launched")
-    for key, (n_flip, n) in flips.items():
-        check(n > 0 and n_flip <= MAX_FLIP_SHARE * n,
-              f"odd-M forward: {key} flipped {n_flip} of {n} spikes")
-    same = torch.equal(f["kernels"], f["plain"])
-    if flips["K1"][0] + flips["K2"][0] == 0:
-        check(same, "odd-M forward: no kernel launch flipped a spike, yet "
-              "the kernel path differs from the plain path")
     log(f"[11] en4 bf16 eval at {hw[0]}x{hw[1]}, T={T}, window "
         f"{tuple(swin.window_size)}: window counts per block {ms} (raw "
         f"refold at M={odd[0]}); K1 {k1} launches, K2 {k2}; each launch vs "
@@ -2667,15 +2704,14 @@ def patched(module, name, make_wrapper):
         setattr(module, name, original)
 
 
-def eval_run(torch, argv):
-    """``eval_dsec.main(argv)`` with its metric inputs recorded, its eval
-    step kept and ``evaluate`` timed (host clock) from the end of its first
-    batch, the warm-up, to its results; the launches of K1, K2 and K3
+def eval_run(torch, main, argv):
+    """``main(argv)``, the ``main`` of ``eval_dsec`` or of ``eval_mvsec``
+    (which runs ``eval_dsec.evaluate``), with its metric inputs recorded,
+    its eval step kept and ``evaluate`` timed (host clock) from the end of
+    its first batch, the warm-up, to its results; every kernel's launches
     counted from 0 over the run. Returns a dict."""
     import io
     from sdformerflow_tpu_torch import eval_dsec as E
-    from sdformerflow_tpu_torch.ops import hopper_attn, hopper_psn
-    from sdformerflow_tpu_torch.ops import hopper_voxel
     rec = {"inputs": [], "steps": []}
 
     def record_metrics(make):
@@ -2709,20 +2745,22 @@ def eval_run(torch, argv):
             return out
         return run
 
-    hopper_attn.qk_attn_interior.launches = 0
-    hopper_psn.fused_affine_psn.launches = 0
-    hopper_voxel.voxel_k3.launches = 0
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     with patched(E, "make_metrics_fn", record_metrics), \
             patched(E, "make_eval_step", keep_step), \
             patched(E, "evaluate", timed), \
             contextlib.redirect_stdout(io.StringIO()):
-        rec["results"] = E.main(argv)
+        rec["results"] = main(argv)
     rec["main_s"] = time.perf_counter() - t0
-    rec["launches"] = {"K1": hopper_attn.qk_attn_interior.launches,
-                       "K2": hopper_psn.fused_affine_psn.launches,
-                       "K3": hopper_voxel.voxel_k3.launches}
+    rec["launches"] = {k: w.launches for k, w in kernel_wrappers().items()}
     return rec
+
+
+def launches_of(**counts):
+    """Every kernel's expected launches: ``counts``, the others 0."""
+    return {**dict.fromkeys(kernel_wrappers(), 0), **counts}
 
 
 def recompute_numpy(rec):
@@ -2791,9 +2829,9 @@ def float32_sums(rec):
 
 def eval_split(torch, dev, config, rec, make_dataset, n=8):
     """Where a batch's time goes: reading (``__getitem__`` + collate, host
-    clock, median over the split), the host-to-device copy and the step
-    with its metrics (CUDA events, back-to-back), and the card's busy time
-    per batch (profiler)."""
+    clock, median over the split's items), the host-to-device copy and the
+    step with its metrics (CUDA events, back-to-back), and the card's busy
+    time per batch (profiler)."""
     from sdformerflow_tpu_torch.data.augmentation import center_crop
     from sdformerflow_tpu_torch.data.dsec import _collate
     from sdformerflow_tpu_torch.training.evaluate import make_metrics_fn
@@ -2863,6 +2901,7 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
     the tree in both layouts."""
     import shutil
     import yaml
+    from sdformerflow_tpu_torch import eval_dsec
     from sdformerflow_tpu_torch.data.dsec import (DSECDatasetLite,
                                                   DSECEventListDataset)
     from sdformerflow_tpu_torch.models.registry import get_model
@@ -2921,20 +2960,23 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
     base = ["--eval_config", valid_cfg, "--torch_ckpt", pt, "--path", tree,
             "--bf16"]
     # a first pass gives the flows the valid windows' GT is made from
-    first = eval_run(torch, ["--train_config", CONFIG] + base + [
+    first = eval_run(torch, eval_dsec.main, [
+        "--train_config", CONFIG] + base + [
         "--run_dir", os.path.join(root, "eval_first")])
     write_dsec_gt(tree, valid_names, [p[0] for p in first["inputs"]], seen,
                   tuple(config["loader"]["crop"]))
     del first
     runs = {
-        "voxel": eval_run(torch, ["--train_config", CONFIG] + base + [
+        "voxel": eval_run(torch, eval_dsec.main, [
+            "--train_config", CONFIG] + base + [
             "--run_dir", os.path.join(root, "eval_voxel"),
             "--store_submission"]),
-        "voxel_masked": eval_run(torch, [
+        "voxel_masked": eval_run(torch, eval_dsec.main, [
             "--train_config", CONFIG, "--torch_ckpt", pt, "--path", tree,
             "--bf16", "--eval_config", masked_cfg,
             "--run_dir", os.path.join(root, "eval_voxel_masked")]),
-        "events": eval_run(torch, ["--train_config", events_train] + base + [
+        "events": eval_run(torch, eval_dsec.main, [
+            "--train_config", events_train] + base + [
             "--run_dir", os.path.join(root, "eval_events")]),
     }
     for name, rec in runs.items():
@@ -2955,8 +2997,8 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
               f"[12] {name}: metrics against the float64 recompute: "
               f"{rec['rel_err']}")
         n = DSEC_VALID
-        want_l = {"K1": 12 * n, "K2": 45 * n,
-                  "K3": n if name == "events" else 0}
+        want_l = launches_of(K1=12 * n, K2=45 * n,
+                             K3=n if name == "events" else 0)
         check(rec["launches"] == want_l, f"[12] {name}: launches "
               f"{rec['launches']}, expected {want_l}")
         masked = [p[3] is not None for p in rec["inputs"]]
@@ -3009,12 +3051,13 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
                              for i in range(DSEC_TIMED)])
     timed = {}
     for name, train_cfg in (("voxel", CONFIG), ("events", events_train)):
-        rec = eval_run(torch, ["--train_config", train_cfg] + base + [
+        rec = eval_run(torch, eval_dsec.main, [
+            "--train_config", train_cfg] + base + [
             "--run_dir", os.path.join(root, f"timed_{name}")])
         res, ref = rec["results"], runs[name]["results"]
         n = DSEC_TIMED
-        want_l = {"K1": 12 * n, "K2": 45 * n,
-                  "K3": n if name == "events" else 0}
+        want_l = launches_of(K1=12 * n, K2=45 * n,
+                             K3=n if name == "events" else 0)
         check(res["num_samples"] == res["num_batches"] == n
               and rec["launches"] == want_l, f"[12] timed {name}: "
               f"{res}, launches {rec['launches']}, expected {want_l}")
@@ -3084,10 +3127,10 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
             f"{wall:.1f} s")
     # a trainer checkpoint through --ckpt and FlowServer(ckpt=...)
     ckpt = os.path.join(root, "train_voxel", "ckpt")
-    rec = eval_run(torch, ["--train_config", CONFIG, "--eval_config",
-                           valid_cfg, "--ckpt", ckpt, "--path", tree,
-                           "--bf16", "--max_batches", "2", "--run_dir",
-                           os.path.join(root, "eval_ckpt")])
+    rec = eval_run(torch, eval_dsec.main, [
+        "--train_config", CONFIG, "--eval_config", valid_cfg, "--ckpt", ckpt,
+        "--path", tree, "--bf16", "--max_batches", "2", "--run_dir",
+        os.path.join(root, "eval_ckpt")])
     res = rec["results"]
     check(res["num_batches"] == 2 and all(np.isfinite(res[k])
                                           for k in DSEC_METRICS),
@@ -3282,6 +3325,7 @@ def stt_eval(torch, dev, root, raw, state_dict):
     times the en4's, over the split cycled to ``DSEC_TIMED`` windows."""
     import shutil
     import yaml
+    from sdformerflow_tpu_torch import eval_dsec
     from sdformerflow_tpu_torch.models.registry import get_model
     from sdformerflow_tpu_torch.training.config import (build_configs,
                                                         chunk_bins,
@@ -3313,13 +3357,13 @@ def stt_eval(torch, dev, root, raw, state_dict):
     del model
     argv = ["--train_config", path, "--torch_ckpt", pt, "--path", tree,
             "--bf16"]
-    first = eval_run(torch, argv + ["--run_dir",
-                                    os.path.join(root, "eval_first")])
+    first = eval_run(torch, eval_dsec.main, argv + [
+        "--run_dir", os.path.join(root, "eval_first")])
     preds = [p[0][i:i + 1] for p in first["inputs"]
              for i in range(p[0].shape[0])]
     write_dsec_gt(tree, valid, preds, seen, tuple(config["loader"]["crop"]))
-    rec = eval_run(torch, argv + ["--run_dir",
-                                  os.path.join(root, "eval_voxel")])
+    rec = eval_run(torch, eval_dsec.main, argv + [
+        "--run_dir", os.path.join(root, "eval_voxel")])
     res = rec["results"]
     check(set(DSEC_METRICS) <= set(res) and res["num_samples"] == DSEC_VALID
           and all(np.isfinite(res[k]) for k in DSEC_METRICS),
@@ -3334,8 +3378,8 @@ def stt_eval(torch, dev, root, raw, state_dict):
     # the timed run: the doubleseq split cycled to DSEC_TIMED windows, the
     # first batch left out as the warm-up
     write_doubleseq(tree, [rows[i % DSEC_VALID] for i in range(DSEC_TIMED)])
-    timed = eval_run(torch, argv + ["--run_dir",
-                                    os.path.join(root, "eval_timed")])
+    timed = eval_run(torch, eval_dsec.main, argv + [
+        "--run_dir", os.path.join(root, "eval_timed")])
     t_res = timed["results"]
     check(t_res["num_samples"] == t_res["num_batches"] == DSEC_TIMED
           and all(abs(t_res[k] - res[k]) <= DSEC_EVAL_TOL * abs(res[k])
@@ -3616,6 +3660,414 @@ def phase_ann(torch, dev, card):
     return out
 
 
+# ----------------------------------------------------------- phase 14
+# the MDR / MVSEC slice: train_mdr and eval_mvsec on trees written here
+
+MDR_CONFIG = os.path.join(ROOT, "configs", "train_mdr_sdformerflow.yaml")
+MVSEC_EVAL_CONFIG = os.path.join(ROOT, "configs", "eval_mvsec.yaml")
+MDR_SENSOR = (260, 346)        # MDR's and MVSEC's DAVIS346 frame
+MDR_SCENES = 8                 # two batches of 4 an epoch
+MDR_EVENTS = 2 ** 15           # events of every .npz and .h5 file
+MDR_WINDOW_NS = 30_000_000     # the span of an MDR event file
+MVSEC_FRAME_S = 0.032          # the span of an MVSEC event file
+# in-training validation on outdoor_day1 (dt1): test.sample 4 at batch 4,
+# 2 batches; the batcher reads the batch after the last it yields
+MDR_VALID_SAMPLE = 4
+MDR_TIMED_STEPS = 8            # timed on one batch after the run
+# eval_mvsec --max_batches (batch 1): 63 timed after the first, as the
+# timed runs of phase 12
+MVSEC_EVAL = 64
+# samples the trees hold GT and event files for: the validation's and the
+# eval's reads, one batch past the last
+MVSEC_GT = {"outdoor_day1": (MDR_VALID_SAMPLE // 4 + 2) * 4,
+            "indoor_flying1": MVSEC_EVAL + 1}
+MVSEC_EVAL_TOL = 1e-9          # as phase 12: summation order only
+
+
+def write_mdr_tree(root, rng):
+    """MDR's ``dt1/train`` layout at 260x346: per scene the events of both
+    windows and their best-density variants (``.npz``, ns timestamps over
+    30 ms, x/y uniform over the frame, polarity 0/1) and a ``.flo`` GT (a
+    per-scene motion of up to 6 px plus N(0, 0.5) px)."""
+    h, w = MDR_SENSOR
+    base = os.path.join(root, "dt1", "train")
+    for i in range(MDR_SCENES):
+        scene = f"scene_{i:03d}"
+        paths = [os.path.join(base, sub, scene, f"{scene}_{sub}.npz")
+                 for sub in ("events1", "events2")]
+        paths += [os.path.join(base, sub, f"{scene}_{sub}.npz")
+                  for sub in ("best_density_events1", "best_density_events2")]
+        for path in paths:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            t0 = rng.uniform(0, 1e12)
+            np.savez(path, t=t0 + np.sort(rng.uniform(0, MDR_WINDOW_NS,
+                                                      MDR_EVENTS)),
+                     x=rng.integers(0, w, MDR_EVENTS).astype(np.float64),
+                     y=rng.integers(0, h, MDR_EVENTS).astype(np.float64),
+                     p=rng.integers(0, 2, MDR_EVENTS).astype(np.float64))
+        flow = (rng.uniform(-6, 6, (1, 1, 2))
+                + rng.normal(0, 0.5, (h, w, 2))).astype(np.float32)
+        os.makedirs(os.path.join(base, "flow"), exist_ok=True)
+        with open(os.path.join(base, "flow", f"{scene}_flow.flo"), "wb") as f:
+            np.asarray([202021.25], np.float32).tofile(f)
+            np.asarray([w, h], np.int32).tofile(f)
+            flow.tofile(f)
+
+
+def write_mvsec_sequence(root, seq, n, rng):
+    """MVSEC's layout at 260x346 for ``n`` dt4 samples: ``n + 7`` event
+    files (``event/NNNNNN.h5``, the port's writer: 2^15 events over 32 ms,
+    ts in seconds) and ``n`` GT frames a interval (``flowgt_dt1|dt4/N.npy``,
+    [2, H, W]: a smooth field of up to 8 px, 0.1% of the pixels at 2000 px,
+    outside the |flow| < 1000 mask). Every .h5 is read back and compared
+    bit for bit. Returns the bytes written."""
+    from sdformerflow_tpu_torch.data.loader_utils import (get_events_h5,
+                                                          write_events_h5)
+    from sdformerflow_tpu_torch.data.mvsec import VALID_TIME_INDEX
+    first = VALID_TIME_INDEX[seq][0][0]
+    h, w = MDR_SENSOR
+    os.makedirs(os.path.join(root, seq, "event"))
+    nbytes = 0
+    for k in range(n + 7):
+        t = k * MVSEC_FRAME_S + np.sort(rng.uniform(0, MVSEC_FRAME_S,
+                                                    MDR_EVENTS))
+        ev = np.stack([t, rng.integers(0, w, MDR_EVENTS).astype(np.float64),
+                       rng.integers(0, h, MDR_EVENTS).astype(np.float64),
+                       rng.integers(0, 2, MDR_EVENTS).astype(np.float64)], 1)
+        path = os.path.join(root, seq, "event", f"{first + 1 + k:06d}.h5")
+        write_events_h5(path, ev)
+        check(get_events_h5(path).tobytes() == ev.tobytes(),
+              f"[14] {path}: the .h5 reads back other values")
+        nbytes += os.path.getsize(path)
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    for dt in ("dt1", "dt4"):
+        os.makedirs(os.path.join(root, seq, f"flowgt_{dt}"))
+        for k in range(n):
+            a = rng.uniform(-8, 8, 4)
+            flow = np.stack([a[0] * xx + a[1] * yy, a[2] * xx - a[3] * yy])
+            flow.reshape(2, -1)[:, rng.random(h * w) < 1e-3] = 2000.0
+            np.save(os.path.join(root, seq, f"flowgt_{dt}",
+                                 f"{first + k}.npy"), flow.astype(np.float32))
+    return nbytes
+
+
+def mdr_train(torch, argv, TL, P):
+    """``train_mdr.main(argv)`` with each step's host ms (synced), loss and
+    K2 / K2b launches recorded, the loop's train step, last batch and
+    optimizer kept, its eval step and the first chunk the validation gave
+    it, the peak memory, and every kernel's launches over the run from
+    0."""
+    from sdformerflow_tpu_torch import train_mdr
+    rec = {"steps": []}
+
+    def keep_eval(make):
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+            rec["eval_step"] = step
+
+            def run(chunk):
+                rec.setdefault("valid_chunk", chunk)
+                return step(chunk)
+            return run
+        return make_step
+
+    def counted(make):
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+            rec["step"] = step
+
+            def run(batch):
+                rec["batch"] = batch
+                c0 = (P.fused_affine_psn.launches,
+                      P.fused_psn_backward.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(batch)
+                loss = out["loss"].item()
+                rec["steps"].append(((time.perf_counter() - t0) * 1e3, loss,
+                                     P.fused_affine_psn.launches - c0[0],
+                                     P.fused_psn_backward.launches - c0[1]))
+                return out
+            run.model = step.model
+            return run
+        return make_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    with patched(TL, "make_train_step", counted), \
+            patched(TL, "make_eval_step", keep_eval):
+        rec["opt"] = train_mdr.main(argv)[1]
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {k: w.launches for k, w in kernel_wrappers().items()}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(argv[argv.index("--run_dir") + 1],
+                           "metrics.jsonl")) as f:
+        rec["metrics"] = [json.loads(line) for line in f]
+    return rec
+
+
+def phase_mdr(torch, dev, card):
+    """The MDR / MVSEC slice through its entry points on trees written
+    here: ``train_mdr`` with the en4 config (full width, f32, batch 4, the
+    augmentor, validation on outdoor_day1 every epoch) with its validation
+    step's K1 / K2 launches and a train step's K2b launches held against
+    their twins, ``train_mdr`` with the STT config (no kernel),
+    ``eval_mvsec`` on indoor_flying1 at dt1 and dt4 from the en4 run's
+    checkpoint with its first window's K1 / K2 launches held against their
+    twins."""
+    import shutil
+    import yaml
+    from torch.utils.data import Subset
+    from sdformerflow_tpu_torch import eval_mvsec
+    from sdformerflow_tpu_torch.data.adapters import MvsecChunkAdapter
+    from sdformerflow_tpu_torch.data.mvsec import (MvsecEventFlow,
+                                                   MvsecEventFlow_dt4)
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training import train_loop as TL
+    from sdformerflow_tpu_torch.training.config import (load_config,
+                                                        merge_eval_config)
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                        "smoke_mdr")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    rng = np.random.default_rng(SEED + 140)
+    t0 = time.perf_counter()
+    write_mdr_tree(data, rng)
+    h5_bytes = sum(write_mvsec_sequence(data, seq, n, rng)
+                   for seq, n in MVSEC_GT.items())
+    tree_s = time.perf_counter() - t0
+    n_h5 = sum(n + 7 for n in MVSEC_GT.values())
+    log(f"[14] trees at {MDR_SENSOR[0]}x{MDR_SENSOR[1]} written in "
+        f"{tree_s:.2f} s: MDR dt1/train {MDR_SCENES} scenes x 4 .npz of "
+        f"{MDR_EVENTS} events + .flo; MVSEC {n_h5} .h5 files of "
+        f"{MDR_EVENTS} events ({h5_bytes / 2 ** 20:.1f} MiB by the port's "
+        f"writer, each read back bit for bit) + flowgt_dt1/dt4 "
+        f"({MVSEC_GT})")
+
+    def write_yaml(name, path, **sections):
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        for section, kw in sections.items():
+            raw.setdefault(section, {}).update(kw)
+        out = os.path.join(root, name)
+        with open(out, "w") as f:
+            yaml.safe_dump(raw, f)
+        return out
+
+    out = {"launches": {}}
+    # the en4: 2 epochs of 2 steps, each ending with a validation
+    en4_cfg = write_yaml("mdr_en4.yaml", MDR_CONFIG,
+                         loader={"n_epochs": 2},
+                         test={"n_valid": 1, "sample": MDR_VALID_SAMPLE})
+    run_dir = os.path.join(root, "train_en4")
+    rec = mdr_train(torch, ["--config", en4_cfg, "--path", data,
+                            "--run_dir", run_dir], TL, P)
+    steps, launched = rec["steps"], rec["launches"]
+    losses = [s[1] for s in steps]
+    names = [m["name"] for m in rec["metrics"]]
+    check(len(steps) == 2 * MDR_SCENES // 4 and all(np.isfinite(losses))
+          and int(rec["opt"].notfinite_count) == 0,
+          f"[14] train_mdr en4: steps {steps}")
+    check(all(s[2] == s[3] > 0 for s in steps)
+          and len({s[3] for s in steps}) == 1,
+          f"[14] train_mdr en4: K2 / K2b launches per step {steps}")
+    # the validations (batch 4, eval mode) run K1 and K2; training no K1
+    check(launched["K1"] > 0 and launched["K2b"] == sum(s[3] for s in steps)
+          and launched["K2"] > launched["K2b"],
+          f"[14] train_mdr en4: launches {launched}")
+    check(names.count("train_loss") == 2 and names.count("valid_loss") == 2
+          and all(np.isfinite(m["value"]) for m in rec["metrics"]),
+          f"[14] train_mdr en4: metrics.jsonl {rec['metrics']}")
+    valid = [m["value"] for m in rec["metrics"] if m["name"] == "valid_loss"]
+    out["launches"]["train_en4"] = launched
+    log(f"[14] train_mdr en4 (configs/train_mdr_sdformerflow.yaml: base 96, "
+        f"depths (2,2,6,2), window (2,8,8), T=5, batch 4, f32, TF32 off, "
+        f"20-bin chunks of the augmented best-density volumes, 256x256; "
+        f"2 epochs of {len(steps) // 2} steps, each validated on "
+        f"outdoor_day1 dt1): losses {[round(v, 4) for v in losses]}, "
+        f"valid {[round(v, 4) for v in valid]}; per step K2 {steps[0][2]} "
+        f"and K2b {steps[0][3]} launches; the run's launches {launched}; "
+        f"{rec['seconds']:.1f} s with the host's reads on {card}")
+
+    # the step timed on the loop's last batch, the trained model going on
+    step, batch = rec["step"], rec["batch"]
+    ms = []
+    for _ in range(2 + MDR_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)["loss"].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = (float(v) for v in np.percentile(ms[2:], [50, 90]))
+    dev_ms = device_ms_per_call(torch, lambda: step(batch), 3)
+    out["train_step"] = dict(p50_ms=p50, p90_ms=p90, step_ms=ms,
+                             device_ms=dev_ms, peak_gib=rec["peak_gib"],
+                             run_step_ms=[s[0] for s in steps],
+                             losses=losses, valid_losses=valid,
+                             launches_per_step={"K2": steps[0][2],
+                                                "K2b": steps[0][3]})
+    log(f"[14] MDR en4 train step (batch 4, f32, 256x256) on {card}: p50 "
+        f"{p50:.2f} ms, p90 {p90:.2f} over {MDR_TIMED_STEPS} steps after 2 "
+        f"warm-up (host clock, a sync a step; the run's own steps "
+        f"{[round(s[0], 1) for s in steps]} ms); device busy per step "
+        + ("not measured: the profiler recorded no kernel" if dev_ms is None
+           else f"{dev_ms:.2f} ms ({100 * dev_ms / p50:.1f}% of the p50)")
+        + f" (profiler, 3 steps); peak memory {rec['peak_gib']:.2f} GiB "
+        f"(max_memory_allocated over the train_mdr run)")
+
+    # the run's validation step (batch 4, eval mode) on the first chunk
+    # the validation read: every K1 and K2 launch against its plain twin
+    chunk = rec["valid_chunk"]
+    val = checked_forward(torch, rec["eval_step"], chunk,
+                          "[14] train_mdr validation")
+    check(chunk.shape[0] == 4 and val["k1"] > 0 and val["k2"] > 0
+          and bool(torch.isfinite(val["flow"]).all()),
+          f"[14] train_mdr validation: chunk {list(chunk.shape)}, K1 "
+          f"{val['k1']}, K2 {val['k2']} launches")
+    # one more train step on the loop's last batch (batch 4): every K2b
+    # launch against its float64 twin
+    cap = dict(zip(("loss", "k2", "k2b", "sites", "err", "terms", "twin32"),
+                   k2b_capture(torch, dev, P, step, batch, 14)))
+    n_sites = sum(cap["sites"].values())
+    check(batch["chunk"].shape[0] == 4 and np.isfinite(cap["loss"])
+          and cap["k2"] == cap["k2b"] == n_sites == steps[0][3],
+          f"[14] train step: batch {list(batch['chunk'].shape)}, loss "
+          f"{cap['loss']}, K2 {cap['k2']} and K2b {cap['k2b']} launches for "
+          f"{n_sites} PSN sites")
+    check(captured_ok(cap["err"], cap["terms"]),
+          f"[14] train step: K2b vs its twin {cap['err']}; over the sums of "
+          f"|terms|: {cap['terms']}")
+    out["checked"] = dict(
+        valid_k1=val["k1"], valid_k2=val["k2"],
+        valid_flipped={k: v[0] for k, v in val["flips"].items()},
+        valid_flow_equal_to_plain=val["same"], train_k2b=cap["k2b"],
+        train_k2b_rel_err=cap["err"], train_k2b_terms_rel_err=cap["terms"])
+    log(f"[14] train_mdr's validation step on its chunk "
+        f"{list(chunk.shape)} (f32, eval mode): K1 {val['k1']} and K2 "
+        f"{val['k2']} launches, each vs its twin: K1 "
+        f"{val['flips']['K1'][0]} of {val['flips']['K1'][1]} spikes "
+        f"flipped, K2 {val['flips']['K2'][0]} of {val['flips']['K2'][1]}; "
+        f"flow equal to the plain path's: {val['same']}. Its train step on "
+        f"the last batch {list(batch['chunk'].shape)}: K2b {cap['k2b']} "
+        f"launches, each vs the float64 twin, largest |d| / twin's largest: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in cap["err"].items())
+        + "; / the largest sum of |terms|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in cap["terms"].items()))
+    ckpt = os.path.join(run_dir, "ckpt")
+    del rec, step, batch, chunk, val, cap
+    torch.cuda.empty_cache()
+
+    # the STT (ANN): 2 steps, no kernel
+    stt_cfg = write_yaml("mdr_stt.yaml", STT_MDR_CONFIG, test={"sample": 2})
+    rec = mdr_train(torch, ["--config", stt_cfg, "--path", data,
+                            "--max_steps", "2", "--run_dir",
+                            os.path.join(root, "train_stt")], TL, P)
+    losses = [s[1] for s in rec["steps"]]
+    check(len(losses) == 2 and all(np.isfinite(losses))
+          and not any(rec["launches"].values())
+          and {"train_loss", "valid_loss"} <= {m["name"]
+                                               for m in rec["metrics"]},
+          f"[14] train_mdr STT: losses {losses}, launches "
+          f"{rec['launches']}, metrics {rec['metrics']}")
+    out["launches"]["train_stt"] = rec["launches"]
+    out["stt"] = dict(losses=losses, seconds=rec["seconds"],
+                      peak_gib=rec["peak_gib"])
+    log(f"[14] train_mdr STT (configs/train_mdr_stt_voxel.yaml: "
+        f"STTFlowNet_4en, batch 1, f32, 2 steps, validation on "
+        f"outdoor_day1): losses {losses}, launches {rec['launches']} (none "
+        f"expected), {rec['seconds']:.1f} s, peak {rec['peak_gib']:.2f} GiB "
+        f"on {card}")
+    del rec
+    torch.cuda.empty_cache()
+
+    # eval_mvsec on indoor_flying1, dt1 and dt4, from the en4 checkpoint
+    out["eval"] = {}
+    for dt in ("dt1", "dt4"):
+        ev_cfg = write_yaml(f"eval_{dt}.yaml", MVSEC_EVAL_CONFIG,
+                            data={"event_interval": dt})
+        rec = eval_run(torch, eval_mvsec.main, [
+            "--train_config", MDR_CONFIG, "--eval_config", ev_cfg,
+            "--ckpt", ckpt, "--path", data, "--sequence", "indoor_flying1",
+            "--max_batches", str(MVSEC_EVAL), "--run_dir",
+            os.path.join(root, f"eval_{dt}")])
+        res = rec["results"]
+        with open(os.path.join(root, f"eval_{dt}", "results.json")) as f:
+            check(json.load(f) == res, f"[14] eval_mvsec {dt}: results.json "
+                  "differs from the returned results")
+        check(res["num_samples"] == res["num_batches"] == MVSEC_EVAL
+              and res["sequence"] == "indoor_flying1"
+              and all(np.isfinite(res[k]) for k in DSEC_METRICS),
+              f"[14] eval_mvsec {dt}: {res}")
+        want, kept = recompute_numpy(rec)
+        err = {k: abs(res[k] - want[k]) / max(abs(want[k]), 1e-300)
+               for k in DSEC_METRICS}
+        check(all(e <= MVSEC_EVAL_TOL for e in err.values()),
+              f"[14] eval_mvsec {dt}: metrics against the float64 "
+              f"recompute {err}")
+        # batch 1 at 256x256: K1 at stages 1-3, stage 4's odd window count
+        # takes the raw-refold form (phase 11)
+        n = MVSEC_EVAL
+        want_l = launches_of(K1=10 * n, K2=53 * n)
+        check(rec["launches"] == want_l, f"[14] eval_mvsec {dt}: launches "
+              f"{rec['launches']}, expected {want_l}")
+        # the run's eval step on its first window's chunk: every K1 and K2
+        # launch against its plain twin
+        chunk = rec["inputs"][0][3]
+        fwd = checked_forward(torch, rec["steps"][0], chunk,
+                              f"[14] eval_mvsec {dt}")
+        check(chunk.shape[0] == 1 and fwd["k1"] == 10 and fwd["k2"] == 53,
+              f"[14] eval_mvsec {dt}: chunk {list(chunk.shape)}, K1 "
+              f"{fwd['k1']}, K2 {fwd['k2']} launches in the checked window")
+        check(all(p[3] is not None for p in rec["inputs"])
+              and kept is not None and 0 < kept < 1,
+              f"[14] eval_mvsec {dt}: the event footprint keeps {kept}")
+        merged = merge_eval_config(load_config(MDR_CONFIG),
+                                   load_config(ev_cfg))
+        merged["data"].update(path=data, test_sequence="indoor_flying1")
+        cls = MvsecEventFlow if dt == "dt1" else MvsecEventFlow_dt4
+        split = eval_split(torch, dev, merged, rec, lambda: Subset(
+            MvsecChunkAdapter(cls(merged), 1), range(MVSEC_EVAL)))
+        out["eval"][dt] = dict(
+            metrics={k: res[k] for k in DSEC_METRICS},
+            rel_err_vs_f64=max(err.values()), launches=rec["launches"],
+            checked_flipped={k: v[0] for k, v in fwd["flips"].items()},
+            checked_flow_equal_to_plain=fwd["same"],
+            footprint_kept=kept, windows_per_s=rec["windows_per_s"],
+            main_s=rec["main_s"], **split)
+        log(f"[14] eval_mvsec indoor_flying1 {dt} (f32, batch 1, "
+            f"{n} windows, configs/eval_mvsec.yaml: event footprint mask): "
+            + ", ".join(f"{k} {res[k]:.6g}" for k in DSEC_METRICS)
+            + f"; largest relative difference to the float64 numpy "
+            f"recompute {max(err.values()):.3g}; the footprint keeps "
+            f"{kept:.4f} of the GT-valid pixels; launches {rec['launches']}"
+            f"; its first window with each launch vs its twin: K1 "
+            f"{fwd['flips']['K1'][0]} of {fwd['flips']['K1'][1]} spikes "
+            f"flipped, K2 {fwd['flips']['K2'][0]} of "
+            f"{fwd['flips']['K2'][1]}, flow equal to the plain path's: "
+            f"{fwd['same']}"
+            f"; {rec['windows_per_s']:.2f} windows/s over the {n - 1} after "
+            f"the first (host clock, reads included) on {card}; a window: "
+            f"read (h5 + host voxelizer + collate, median of {n}) "
+            f"{split['read_ms']:.2f} ms, H2D {split['h2d_mb']:.1f} MB "
+            f"{split['h2d_ms']:.3f} ms, step + metrics {split['step_ms']:.2f}"
+            f" ms (CUDA events), device busy "
+            + ("not measured" if split["device_ms"] is None
+               else f"{split['device_ms']:.3f} ms") + " (profiler)")
+        out["launches"][f"eval_{dt}"] = rec["launches"]
+        rec["inputs"].clear()
+        rec["steps"].clear()
+        del rec, chunk, fwd
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["tree_s"] = tree_s
+    log(f"[14] phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3675,6 +4127,7 @@ def main() -> int:
         emb = phase_embed(torch, dev, config, state_dict, card)
         dsec = phase_dsec_eval(torch, dev, config, state_dict, card)
         ann = phase_ann(torch, dev, card)
+        mdr = phase_mdr(torch, dev, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3691,7 +4144,9 @@ def main() -> int:
     # the voxel path's (phase 5); K2b per train step (phase 9); K4, K4a and
     # K2c the fused-embed path's counted run (phase 10; no path runs K2c);
     # K1, K2 and K3 also each eval_dsec run's (phase 12, 4 windows); the
-    # ANN paths (phase 13) launch none
+    # ANN paths (phase 13) launch none; the MDR / MVSEC runs' (phase 14):
+    # train_mdr en4 (K2, K2b and the validations' K1), train_mdr STT (none)
+    # and eval_mvsec dt1 / dt4
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -3783,6 +4238,8 @@ def main() -> int:
     for entry, key in zip(kernels, ("K1", "K2", "K2b", "K3", "K4", "K4a",
                                     "K2c")):
         entry["launches_ann_paths"] = ann["kernel_launches"][key]
+        entry["launches_mdr_mvsec"] = {run: counts[key] for run, counts
+                                       in mdr["launches"].items()}
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -3799,6 +4256,7 @@ def main() -> int:
                               if k not in ("k4", "k4a", "k2c")}}))
     log(json.dumps({"dsec_eval": dsec}))
     log(json.dumps({"ann": ann}))
+    log(json.dumps({"mdr_mvsec": mdr}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ and never ``jax``.
 Ported so far: the SDformerFlow-en4 serving forward behind
 :class:`sdformerflow_tpu_torch.serving.FlowServer` (voxel and raw-event
 requests, the fused embed, the s2d head), its train step and trainer, at
-the DSEC and the MDR/MVSEC geometries, with every TPU kernel of the JAX
+the DSEC and the MDR/MVSEC geometries, the DSEC and MVSEC evaluations and
+the MDR trainer (``eval_dsec``, ``eval_mvsec``, ``train_mdr``), the ANN
+family, with every TPU kernel of the JAX
 package as a hand-written CUDA C++ kernel under ``csrc/`` (wrappers in
 ``ops/hopper_*.py``). Importing the package imports nothing else.
 """

@@ -171,6 +171,24 @@ def evaluate(config: dict, model, dataset, *, device="cuda", bf16=False,
     return acc.results()
 
 
+def load_weights(model, *, ckpt=None, torch_ckpt=None):
+    """Load a port checkpoint directory (``ckpt``, the newest epoch) or a
+    ``.pt`` under the reference's state_dict names (``torch_ckpt``) into
+    ``model``; with neither, the model keeps the weights it was built
+    with."""
+    if ckpt:
+        _, epoch = restore_checkpoint(ckpt, model)
+        print(f"restored checkpoint epoch {epoch}")
+    elif torch_ckpt:
+        state, unmatched = load_reference_state_dict(
+            load_torch_checkpoint(torch_ckpt), model)
+        if unmatched:
+            print(f"warning: {len(unmatched)} reference keys unmatched, "
+                  f"e.g. {unmatched[:5]}")
+        model.load_state_dict(state)
+        print(f"converted reference checkpoint {torch_ckpt}")
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     for flag in _NOT_PORTED:
@@ -195,17 +213,7 @@ def main(argv=None) -> dict:
     name = config["model"]["name"]
     model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
                       input_bins=chunk_bins(config))
-    if args.ckpt:
-        _, epoch = restore_checkpoint(args.ckpt, model)
-        print(f"restored checkpoint epoch {epoch}")
-    elif args.torch_ckpt:
-        state, unmatched = load_reference_state_dict(
-            load_torch_checkpoint(args.torch_ckpt), model)
-        if unmatched:
-            print(f"warning: {len(unmatched)} reference keys unmatched, "
-                  f"e.g. {unmatched[:5]}")
-        model.load_state_dict(state)
-        print(f"converted reference checkpoint {args.torch_ckpt}")
+    load_weights(model, ckpt=args.ckpt, torch_ckpt=args.torch_ckpt)
     if args.s2d_embed:
         state = s2d_embed_state_dict(model.state_dict())
         model = get_model(name, model_cfg, swin_cfg,

@@ -98,11 +98,18 @@ def _train(config, train_dataset, valid_dataset, *, run_dir, resume,
     loader, loss_cfg = config["loader"], config["loss"]
     opt_cfg, name = config["optimizer"], config["model"]["name"]
     seed = loader.get("seed", 0)
+    # the model is built at the size it trains at, that of JAX's sample
+    # batch: the whole frame for raw events, else the crop, else (no crop:
+    # the dataset crops, as train_mdr's do) the chunk's. Like JAX, this
+    # reads item 0 twice before training: an augmenting dataset draws from
+    # its generator at each read, so both loops then see the same batches
+    chunk = train_dataset[0][0]
     voxelize = _events_voxelize_cfg(config, train_dataset)
     if voxelize is not None:
-        # raw events train and validate on the whole frame, as in JAX
         swin_cfg = swin_cfg.replace(
             input_size=(voxelize["height"], voxelize["width"]))
+    elif loader.get("crop") is None:
+        swin_cfg = swin_cfg.replace(input_size=tuple(chunk.shape[-2:]))
     torch.manual_seed(seed)
     model = get_model(name, model_cfg, swin_cfg, spiking_cfg, train=True,
                       input_bins=chunk_bins(config)).to(device)

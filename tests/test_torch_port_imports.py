@@ -1,8 +1,9 @@
 """The port imports torch and never jax: every module of
 ``sdformerflow_tpu_torch`` imports in a fresh interpreter with no jax, flax
-or JAX-package module in ``sys.modules``, and importing starts no kernel
-build (nvcc and g++ are needed only when a kernel or the event
-packer is first called)."""
+or JAX-package module in ``sys.modules``, and none of cv2, h5py, pandas or
+PyTables, which the card's host lacks; importing starts no kernel build
+(nvcc and g++ are needed only when a kernel or the event packer is first
+called)."""
 
 import subprocess
 import sys
@@ -25,15 +26,18 @@ PROBE = textwrap.dedent("""
         kernel_build.load_cuda_library, kernel_build.load_host_library,
         native._lib, hopper_attn._kernel_fn, hopper_voxel._lib,
         hopper_psn._lib, hopper_embed._conv_fn))
-    print(len(names), built, bad, " ".join(names))
+    host = sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("cv2", "h5py", "pandas", "tables"))
+    print(len(names), built, bad, host, " ".join(names))
 """)
 
 
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 35, out
-    assert out[1:3] == ["0", "[]"], out    # nothing built, nothing of jax
+    assert int(out[0]) >= 55, out
+    # nothing built, nothing of jax, none of cv2 / h5py / pandas / tables
+    assert out[1:4] == ["0", "[]", "[]"], out
     for name in ("native", "ops.voxel", "ops.hopper_voxel", "serving",
                  "training.train_step", "training.optim",
                  "training.train_loop", "training.checkpoints", "losses",
@@ -41,5 +45,6 @@ def test_port_imports_no_jax():
                  "train_dsec", "ops.hopper_embed", "ops.s2d",
                  "training.s2d_embed", "training.evaluate",
                  "training.torch_interop", "utils.visualization",
-                 "eval_dsec"):
-        assert f"sdformerflow_tpu_torch.{name}" in out[3:], name
+                 "eval_dsec", "data.hdf5", "data.loader_utils", "data.mdr",
+                 "data.mvsec", "data.adapters", "train_mdr", "eval_mvsec"):
+        assert f"sdformerflow_tpu_torch.{name}" in out[4:], name
