@@ -156,7 +156,23 @@ Phases (any failure exits non-zero):
    1e-9 of the float64 numpy recompute, windows/s over the 63 windows
    after the first and a window's read (h5 + host voxelizer), H2D and
    step + metrics ms. The JSON line ``{"mdr_mvsec": ...}`` before the
-   kernels line holds them.
+   kernels line holds them;
+15. the deployment surface at full en4 width (288x384, bf16, batch 1, the
+   seeded weights saved as a trainer checkpoint): ``export_model
+   --event_buckets 1048576 --verify`` (the voxel and events programs through
+   ``torch.export``, K1, K2 and K3 as custom ops; export seconds and
+   artifact MB); the programs reloaded in a fresh process that imports
+   ``training/export.py`` and no model code, on 8 voxel and 8 exact
+   (dyadic) 0.6-1.0 x 2^20-event windows at 480x640: K1 12, K2 45 (+K3 1)
+   launches a request, no plain twin, flows equal to the live step's bit
+   for bit, p50 and device busy beside the live step's; what the custom
+   ops would cost the eager voxel request (p50 and a wrapper call, op
+   against straight launch, interleaved); ``serve --port 0`` as a process,
+   the same 16 requests over HTTP through ``flow_client.post_flow`` equal
+   to the in-process ``FlowServer.infer``, ``/stats``, ``/healthz``, then
+   SIGTERM and a clean exit; ``bench_serving --requests 32``. The JSON
+   line ``{"deploy": ...}`` before the kernels line holds them, and each
+   kernel entry's ``launches_export`` the reloaded programs' launches.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -4068,6 +4084,404 @@ def phase_mdr(torch, dev, card):
     return out
 
 
+# ------------------------------------------------------------ phase 15
+# the deployment surface: export_model, a fresh-process reload of its
+# programs, the HTTP front and its client, bench_serving, and what the
+# kernels' custom ops cost the eager path
+
+N_DEPLOY = 8          # voxel and event requests each, through every route
+N_DEPLOY_TIMED = 32   # one at a time: the live and the reloaded p50
+N_DISPATCH = 32       # eager voxel requests a route, the routes interleaved
+DISPATCH_CALLS = 200  # back-to-back calls a route at one K1 and one K2 site
+DEPLOY_TIMEOUT_S = 600
+# the eager path would take the custom ops only if they cost a request at
+# most this much; above it the wrappers launch straight and take the ops
+# only while traced (ops/hopper_*.py)
+DISPATCH_BUDGET_MS = 0.5
+
+RELOAD_PROBE = r"""
+import json, sys, time
+import torch
+t0 = time.perf_counter()
+from sdformerflow_tpu_torch.training.export import load_exported
+meta, fns = load_exported(sys.argv[1])
+load_s = time.perf_counter() - t0
+dev = torch.device(meta["device"])
+loaded = sorted(m for m in sys.modules if m.startswith((
+    "sdformerflow_tpu_torch.models", "sdformerflow_tpu_torch.serving",
+    "sdformerflow_tpu_torch.training.train_step", "jax", "sdformerflow_tpu.")))
+import chip_smoke as S
+from sdformerflow_tpu_torch.ops import hopper_attn as A, hopper_psn as P
+from sdformerflow_tpu_torch.ops import voxel as VP
+
+def twin(*a, **kw):
+    raise RuntimeError("a plain twin ran in the exported program")
+
+if dev.type == "cuda":   # a program on the card runs no plain twin
+    A.qk_attn_interior_plain = P.psn_spike = VP.voxel_grid_signed = twin
+voxel, raw = S.deploy_inputs(meta["num_bins"], meta["crop"])
+requests = {"voxel": [torch.from_numpy(c)[None].to(dev) for c in voxel],
+            "events": [S.packed_events(torch, r, dev) for r in raw]}
+programs = {"voxel": fns["voxel"], "events": fns[f"events_{S.K3_EVENTS}"]}
+counts = lambda: {k: w.launches for k, w in S.kernel_wrappers().items()}
+flows, per_request, totals = {}, [], dict.fromkeys(S.kernel_wrappers(), 0)
+for kind, reqs in requests.items():
+    flows[kind] = []
+    for r in reqs:
+        c0 = counts()
+        flows[kind].append(programs[kind](r).cpu())
+        c1 = counts()
+        per_request.append([kind] + [c1[k] - c0[k] for k in ("K1", "K2", "K3")])
+        for k in totals:
+            totals[k] += c1[k] - c0[k]
+torch.save(flows, sys.argv[2])
+timed = {kind: S.request_p50(torch, programs[kind], reqs, S.N_DEPLOY_TIMED)
+         for kind, reqs in requests.items()}
+busy = {kind: S.device_ms_per_call(torch, lambda: programs[kind](reqs[0]), 8)
+        for kind, reqs in requests.items()}
+print(json.dumps({"load_s": load_s, "loaded": loaded,
+                  "per_request": per_request, "launches": totals,
+                  "p50_ms": timed, "device_ms": busy}))
+"""
+
+
+def deploy_inputs(bins, hw):
+    """The phase's requests, the same in every process: N_DEPLOY sparse
+    voxel chunks [bins, h, w] and N_DEPLOY exact (dyadic) windows of
+    0.6-1.0 x 2^20 events at 480x640, so that K3's sums, and the flows,
+    do not depend on the order of its atomics."""
+    rng = np.random.default_rng(SEED + 150)
+    raw = [dyadic_window(rng, bins, int(rng.uniform(0.6, 1.0) * K3_EVENTS))
+           for _ in range(N_DEPLOY)]
+    return voxel_requests(N_DEPLOY, bins, hw, SEED + 151), raw
+
+
+def packed_events(torch, request, dev):
+    """A raw window packed as the server packs it (``native.pack_window``,
+    t taken as it comes) into the exported events program's input:
+    {x, y, t, p: [1, 2^20] float32, valid: [1, 2^20] bool} on ``dev``."""
+    from sdformerflow_tpu_torch import native
+    buf = np.empty((5, K3_EVENTS), np.float32)
+    native.pack_window(request["x"], request["y"], request["t"],
+                       request["p"], K3_EVENTS, t0=0.0, out=buf)
+    b = torch.from_numpy(buf).to(dev)
+    return {"x": b[None, 0], "y": b[None, 1], "t": b[None, 2],
+            "p": b[None, 3], "valid": b[None, 4] != 0}
+
+
+def request_p50(torch, fn, requests, n):
+    """The p50 (host clock, ms) of ``fn`` on ``requests`` cycled, one at a
+    time, each ending in a sync."""
+    fn(requests[0])
+    lat = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(requests[i % len(requests)])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(lat, 50))
+
+
+def op_sites():
+    """Site functions that reach K1 and K2 through their custom ops, as a
+    traced program does, in place of the wrappers' straight launch."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+
+    def psn(x, w, b, *, scale=None, shift=None, **_):   # forward only
+        return P.fused_affine_psn_op(x, w, b, scale, shift, x.dtype)
+
+    def attend(x, p, nh):
+        a = A.qk_attn_interior_op(x, list(p[:A.N_INTERIOR]), nh)
+        return A.qk_attn_tail(a, p, nh, x.shape, x.dtype)
+    return psn, attend
+
+
+def host_ms_per_call(torch, fn, n=DISPATCH_CALLS):
+    """Host ms a call over ``n`` back-to-back calls ending in one sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def dispatch_cost(torch, dev, server, voxel):
+    """What reaching K1 and K2 through their custom ops costs the eager
+    voxel request: its p50 with the ops against the straight launches, the
+    routes interleaved, and each wrapper's host time a call at the
+    smallest K1 and K2 site of the request, both routes."""
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    chunks = [torch.from_numpy(c)[None].to(dev) for c in voxel]
+    lat = {"launch": [], "op": []}
+    for i in range(N_DISPATCH):
+        for route in ("launch", "op")[::1 if i % 2 else -1]:
+            ctx = (site_functions(*op_sites()) if route == "op"
+                   else contextlib.nullcontext())
+            with ctx:
+                lat[route].append(request_p50(
+                    torch, server._step, [chunks[i % len(chunks)]], 1))
+    p50 = {k: float(np.percentile(v, 50)) for k, v in lat.items()}
+    attn, psn = capture_sites(torch, server.model, lambda: server.infer(
+        voxel[0]))
+    mod, x = min(attn, key=lambda a: a[1].numel())
+    shape, dtype, _ = min(psn, key=lambda s: int(np.prod(s[0])))
+    neuron = next(m for m in server.model.modules()
+                  if isinstance(m, SpikingNeuron)
+                  and m.weight.shape[0] == shape[0])
+    gen = torch.Generator(dev).manual_seed(SEED + 152)
+    xs = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    scale = torch.ones(shape[-1], device=dev)
+    shift = torch.zeros(shape[-1], device=dev)
+    with torch.inference_mode():
+        p = mod.kernel_params()
+        per_call = {
+            "K1": {"launch": host_ms_per_call(torch, lambda: (
+                      A.qk_attn_interior(x, p, mod.num_heads))),
+                   "op": host_ms_per_call(torch, lambda: (
+                      A.qk_attn_interior_op(x, list(p[:A.N_INTERIOR]),
+                                            mod.num_heads)))},
+            "K2": {"launch": host_ms_per_call(torch, lambda: (
+                      P.fused_affine_psn(xs, neuron.weight, neuron.bias,
+                                         scale=scale, shift=shift))),
+                   "op": host_ms_per_call(torch, lambda: (
+                      P.fused_affine_psn_op(xs, neuron.weight, neuron.bias,
+                                            scale, shift, xs.dtype)))}}
+    sites = {"K1": len(attn), "K2": len(psn)}
+    per_request = sum(sites[k] * (v["op"] - v["launch"])
+                      for k, v in per_call.items())
+    return dict(p50_ms=p50, p50_delta_ms=p50["op"] - p50["launch"],
+                per_call_ms=per_call, sites=sites,
+                k1_site=list(x.shape), k2_site=list(shape),
+                per_request_ms=per_request)
+
+
+def serve_process(config_path, ckpt, dev):
+    """``python -m sdformerflow_tpu_torch.serve`` on a free port: returns
+    the process, its URL and a queue of its output lines."""
+    import queue
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sdformerflow_tpu_torch.serve",
+         "--train_config", config_path, "--ckpt", ckpt, "--port", "0",
+         "--device", str(dev), "--warmup_events", str(K3_EVENTS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    deadline = time.perf_counter() + DEPLOY_TIMEOUT_S
+    out = []
+    while time.perf_counter() < deadline and proc.poll() is None:
+        try:
+            line = lines.get(timeout=1)
+        except queue.Empty:
+            continue
+        out.append(line)
+        if line.startswith("serving on "):
+            return proc, line.split()[-1], lines
+    proc.kill()
+    proc.wait(timeout=30)
+    raise SmokeFailure("serve did not start: " + "".join(out[-20:]))
+
+
+def phase_deploy(torch, dev, config, state_dict, card):
+    """Phase 15: the deployment surface at full en4 width."""
+    import io
+    import shutil
+    import signal
+    import urllib.request
+    from sdformerflow_tpu_torch import bench_serving, export_model, flow_client
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.serving import FlowServer
+    from sdformerflow_tpu_torch.training import export as X
+    from sdformerflow_tpu_torch.training.checkpoints import save_checkpoint
+    from sdformerflow_tpu_torch.training.config import build_configs
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                        "smoke_deploy")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt, out = os.path.join(root, "ckpt"), os.path.join(root, "export")
+    model = get_model(config["model"]["name"], *build_configs(config))
+    model.load_state_dict(state_dict)
+    save_checkpoint(ckpt, model, torch.optim.SGD(model.parameters(), lr=0),
+                    epoch=0, step=0)
+    del model
+    bins, hw = config["data"]["num_frames"], tuple(config["loader"]["crop"])
+
+    # export_model --event_buckets 2^20 --verify; the export timed alone
+    timing = {}
+
+    def timed(export):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            meta = export(*args, **kw)
+            timing["export_s"] = time.perf_counter() - t0
+            return meta
+        return run
+
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with patched(X, "export_flow_model", timed), \
+            contextlib.redirect_stdout(text):
+        meta = export_model.main(["--train_config", CONFIG, "--ckpt", ckpt,
+                                  "--out", out, "--device", str(dev),
+                                  "--event_buckets", str(K3_EVENTS),
+                                  "--verify"])
+    main_s = time.perf_counter() - t0
+    log("[15] export_model: " + " | ".join(text.getvalue().splitlines()))
+    mb = {name: os.path.getsize(os.path.join(out, name + ".pt2")) / 1e6
+          for name in meta["artifacts"]}
+    check(meta["device"] == dev.type and meta["bf16"]
+          and set(meta["verify"]) == {"voxel", f"events_{K3_EVENTS}"}
+          and not any(meta["verify"].values()),
+          f"export_model --verify: {meta.get('verify')}")
+    log(f"[15] exported {sorted(mb)} in {timing['export_s']:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} MB' for k, v in mb.items())}); "
+        f"export_model with --verify {main_s:.1f} s")
+
+    # the live step: an in-process FlowServer on the same checkpoint
+    voxel, raw = deploy_inputs(bins, hw)
+    events = [packed_events(torch, r, dev) for r in raw]
+    server = FlowServer(config, ckpt=ckpt, device=dev, bf16=True)
+    try:
+        chunks = [torch.from_numpy(c)[None].to(dev) for c in voxel]
+        live = {"voxel": [server._step(c)[-1].cpu() for c in chunks],
+                "events": [server._events_step(e)[-1].cpu()
+                           for e in events]}
+        infer = {"voxel": [server.infer(c) for c in voxel],
+                 "events": [server.infer(r) for r in raw]}
+        for kind in live:
+            check(all(np.array_equal(a, b[0].numpy())
+                      for a, b in zip(infer[kind], live[kind])),
+                  f"FlowServer.infer differs from its own {kind} step")
+        live_p50 = {"voxel": request_p50(torch, lambda c: server._step(c),
+                                         chunks, N_DEPLOY_TIMED),
+                    "events": request_p50(torch,
+                                          lambda e: server._events_step(e),
+                                          events, N_DEPLOY_TIMED)}
+        live_busy = {
+            "voxel": device_ms_per_call(
+                torch, lambda: server._step(chunks[0]), 8),
+            "events": device_ms_per_call(
+                torch, lambda: server._events_step(events[0]), 8)}
+        dispatch = dispatch_cost(torch, dev, server, voxel)
+    finally:
+        server.close()
+    del events
+    torch.cuda.empty_cache()
+
+    # the programs reloaded in a fresh process that imports export.py only
+    flows_path = os.path.join(root, "reloaded_flows.pt")
+    t0 = time.perf_counter()
+    probe = subprocess.run([sys.executable, "-c", RELOAD_PROBE, out,
+                            flows_path], cwd=ROOT, capture_output=True,
+                           text=True, timeout=DEPLOY_TIMEOUT_S)
+    reload_s = time.perf_counter() - t0
+    check(probe.returncode == 0, f"reload probe failed:\n{probe.stderr}")
+    rel = json.loads(probe.stdout.strip().splitlines()[-1])
+    check(rel["loaded"] == [], f"the reload imported {rel['loaded']}")
+    for kind, k1, k2, k3 in rel["per_request"]:
+        check((k1, k2, k3) == (12, 45, int(kind == "events")),
+              f"reloaded {kind} request launched K1 {k1}, K2 {k2}, K3 {k3}")
+    check(all(v == 0 for k, v in rel["launches"].items()
+              if k not in ("K1", "K2", "K3")),
+          f"reloaded programs launched {rel['launches']}")
+    reloaded = torch.load(flows_path)
+    equal = {kind: sum(torch.equal(a, b) for a, b in
+                       zip(reloaded[kind], live[kind])) for kind in live}
+    diff = {kind: max(float((a - b).abs().max()) for a, b in
+                      zip(reloaded[kind], live[kind])) for kind in live}
+    log(f"[15] reloaded in a fresh process ({reload_s:.1f} s, load "
+        f"{rel['load_s']:.1f} s, no model module imported): launches a "
+        f"request K1 12, K2 45 (+K3 1 events), no twin; flows equal to the "
+        f"live step: voxel {equal['voxel']}/{N_DEPLOY}, events "
+        f"{equal['events']}/{N_DEPLOY} (max |d| {diff})")
+    check(all(v == N_DEPLOY for v in equal.values()),
+          f"reloaded flows differ from the live step: {diff}")
+    log(f"[15] p50 one at a time ({N_DEPLOY_TIMED}) on {card}: live voxel "
+        f"{live_p50['voxel']:.2f} ms / reloaded {rel['p50_ms']['voxel']:.2f}"
+        f", live events {live_p50['events']:.2f} / reloaded "
+        f"{rel['p50_ms']['events']:.2f}; device busy a request: live "
+        f"{live_busy} / reloaded {rel['device_ms']}")
+    d = dispatch
+    log(f"[15] eager dispatch through the custom ops (voxel request, "
+        f"{N_DISPATCH} a route, interleaved): p50 launch "
+        f"{d['p50_ms']['launch']:.3f} ms, op {d['p50_ms']['op']:.3f} "
+        f"(+{d['p50_delta_ms']:.3f}); a call: K1 {d['per_call_ms']['K1']}, "
+        f"K2 {d['per_call_ms']['K2']} ms at {d['k1_site']} / "
+        f"{d['k2_site']}; x {d['sites']} sites = "
+        f"+{d['per_request_ms']:.3f} ms a request; the eager path "
+        + ("launches straight (over the "
+           if d["per_request_ms"] > DISPATCH_BUDGET_MS else
+           "could take the ops (within the ")
+        + f"{DISPATCH_BUDGET_MS} ms budget)")
+
+    # the HTTP front: serve on a free port, the same requests through the
+    # client, /stats, /healthz, SIGTERM
+    proc, url, lines = serve_process(CONFIG, ckpt, dev)
+    try:
+        t0 = time.perf_counter()
+        http = {"voxel": [flow_client.post_flow(url, chunk=c)
+                          for c in voxel],
+                "events": [flow_client.post_flow(url, events=r)
+                           for r in raw]}
+        http_s = time.perf_counter() - t0
+        for kind in http:
+            check(all(np.array_equal(a, b)
+                      for a, b in zip(http[kind], infer[kind])),
+                  f"HTTP {kind} flows differ from FlowServer.infer")
+        stats = flow_client.get_stats(url)
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = r.read()
+        check(health == b"ok" and stats["served"] == 2 * N_DEPLOY + 2
+              and stats["pending"] == 0, f"serve: /healthz {health!r}, "
+              f"/stats {stats}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    tail = []
+    while not lines.empty():
+        tail.append(lines.get())
+    check(rc == 0 and any("server closed" in ln for ln in tail),
+          f"serve exited {rc} on SIGTERM: {''.join(tail[-10:])}")
+    log(f"[15] serve --port 0 at {url}: {2 * N_DEPLOY} requests over HTTP "
+        f"in {http_s:.1f} s, equal to FlowServer.infer; /stats {stats}; "
+        f"/healthz ok; SIGTERM -> exit 0, server closed")
+
+    # bench_serving --requests 32
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        bench = bench_serving.main(["--requests", "32", "--device",
+                                    str(dev)])
+    log("[15] bench_serving: " + " | ".join(text.getvalue().splitlines()))
+    check(all(bench[k]["windows_per_s"] > 0
+              for k in ("voxel@crop", "events@2^20")),
+          f"bench_serving: {bench}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[15] phase 15: {phase_s:.1f} s")
+    return dict(
+        export_s=timing["export_s"], export_model_s=main_s,
+        artifact_mb=mb, verify=meta["verify"], reload_s=reload_s,
+        load_s=rel["load_s"], launches_export=rel["launches"],
+        equal=equal, max_abs_diff=diff, live_p50_ms=live_p50,
+        reloaded_p50_ms=rel["p50_ms"], live_device_ms=live_busy,
+        reloaded_device_ms=rel["device_ms"], dispatch=dispatch,
+        http_s=http_s, stats=stats,
+        bench={k: v["windows_per_s"] for k, v in bench.items()
+               if isinstance(v, dict)},
+        phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -4128,6 +4542,7 @@ def main() -> int:
         dsec = phase_dsec_eval(torch, dev, config, state_dict, card)
         ann = phase_ann(torch, dev, card)
         mdr = phase_mdr(torch, dev, card)
+        deploy = phase_deploy(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4146,7 +4561,8 @@ def main() -> int:
     # K1, K2 and K3 also each eval_dsec run's (phase 12, 4 windows); the
     # ANN paths (phase 13) launch none; the MDR / MVSEC runs' (phase 14):
     # train_mdr en4 (K2, K2b and the validations' K1), train_mdr STT (none)
-    # and eval_mvsec dt1 / dt4
+    # and eval_mvsec dt1 / dt4; the exported programs' (phase 15): 8 voxel
+    # and 8 events requests reloaded in a fresh process
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -4240,6 +4656,7 @@ def main() -> int:
         entry["launches_ann_paths"] = ann["kernel_launches"][key]
         entry["launches_mdr_mvsec"] = {run: counts[key] for run, counts
                                        in mdr["launches"].items()}
+        entry["launches_export"] = deploy["launches_export"][key]
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -4257,6 +4674,7 @@ def main() -> int:
     log(json.dumps({"dsec_eval": dsec}))
     log(json.dumps({"ann": ann}))
     log(json.dumps({"mdr_mvsec": mdr}))
+    log(json.dumps({"deploy": deploy}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ Ported so far: the SDformerFlow-en4 serving forward behind
 requests, the fused embed, the s2d head), its train step and trainer, at
 the DSEC and the MDR/MVSEC geometries, the DSEC and MVSEC evaluations and
 the MDR trainer (``eval_dsec``, ``eval_mvsec``, ``train_mdr``), the ANN
-family, with every TPU kernel of the JAX
+family, the deployment surface (``training/export.py`` through
+``torch.export`` and its ``export_model`` CLI, the HTTP front ``serve``,
+``flow_client`` and ``bench_serving``), with every TPU kernel of the JAX
 package as a hand-written CUDA C++ kernel under ``csrc/`` (wrappers in
 ``ops/hopper_*.py``). Importing the package imports nothing else.
 """

@@ -20,13 +20,21 @@ kernel needed and this one does not: block pickers, token padding 81 -> 84,
 Dispatch: :func:`fused_qk_attention` runs the kernel for a CUDA tensor (or
 raises) and the plain twin :func:`qk_attention_pairlocal` for a CPU tensor.
 Forward only: a CUDA call that would need gradients raises.
+
+The interior is also the custom op ``sdformerflow_torch::qk_attn_interior``
+(:data:`qk_attn_interior_op`), with a fake form that gives its output's
+shape. While ``torch.export`` (or ``torch.compile``) traces,
+:func:`fused_qk_attention` calls the op, so an exported program carries one
+op node per attention site; the op's real implementation dispatches by
+device like the eager call, which goes straight to the launch (the op's
+Python dispatch costs host time at every site, PERF.md section 5).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +72,11 @@ class QKAttnParams(NamedTuple):
     cp: torch.Tensor
 
 
+# the fields of QKAttnParams the interior reads (w_in ... b_t); the last
+# four (wp, bp, ap, cp) are the tail's
+N_INTERIOR = len(QKAttnParams._fields) - 4
+
+
 def bn_eval_affine(scale, bias, mean, var, eps=1e-5):
     """Eval BatchNorm as ``y = a * x + c``, statistics in >= float32."""
     cdt = torch.promote_types(var.dtype, torch.float32)
@@ -87,6 +100,13 @@ def _check(x_windows, num_heads):
             f"got wd={wd}, M={M}")
     if C % num_heads:
         raise ValueError(f"C={C} is not a multiple of num_heads={num_heads}")
+
+
+def _forward_only(tensors):
+    """Raise if a K1 call would have to record a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError("K1 is forward-only: call it under "
+                                  "torch.no_grad() or inference_mode()")
 
 
 def qk_attn_interior_plain(x_windows, p: QKAttnParams, num_heads: int):
@@ -214,10 +234,7 @@ def prepare_qk_attn_interior(x_windows, p: QKAttnParams, num_heads: int,
         raise ValueError("qk_attn_interior runs on CUDA tensors only")
     if x_windows.dtype not in _DTYPE_CODES:
         raise TypeError(f"K1 takes float32 or bfloat16, got {x_windows.dtype}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x_windows, *p)):
-        raise NotImplementedError("K1 is forward-only: call it under "
-                                  "torch.no_grad() or inference_mode()")
+    _forward_only((x_windows, *(t for t in p if t is not None)))
     _, M, wh, ww, C = x_windows.shape
     ns, dt = wh * ww, x_windows.dtype
     x = _aligned(x_windows.contiguous())
@@ -268,10 +285,39 @@ def qk_attn_interior(x_windows, p: QKAttnParams, num_heads: int):
 qk_attn_interior.launches = 0
 
 
+def _interior(x_windows: torch.Tensor, params: List[torch.Tensor],
+              num_heads: int) -> torch.Tensor:
+    """The real implementation of :data:`qk_attn_interior_op`: K1 for a
+    CUDA tensor (counted on :func:`qk_attn_interior`), the plain twin for a
+    CPU tensor. ``params`` are QKAttnParams' first :data:`N_INTERIOR`
+    fields, in order."""
+    p = QKAttnParams(*params, *(None,) * (len(QKAttnParams._fields)
+                                          - N_INTERIOR))
+    if x_windows.device.type == "cpu":
+        return qk_attn_interior_plain(x_windows, p, num_heads)
+    return qk_attn_interior(x_windows, p, num_heads)
+
+
+qk_attn_interior_op = torch.library.custom_op(
+    "sdformerflow_torch::qk_attn_interior", _interior, mutates_args=())
+
+
+@qk_attn_interior_op.register_fake
+def _(x_windows, params, num_heads):
+    _check(x_windows, num_heads)
+    _, M, wh, ww, C = x_windows.shape
+    return x_windows.new_empty((2, M, wh * ww, C))
+
+
 def fused_qk_attention(x_windows, p: QKAttnParams, num_heads: int):
     """Attention forward [2, M, wh, ww, C] -> same shape: K1 + torch tail
-    for a CUDA tensor, :func:`qk_attention_pairlocal` for a CPU tensor."""
-    if x_windows.device.type == "cpu":
+    for a CUDA tensor, :func:`qk_attention_pairlocal` for a CPU tensor;
+    while traced, :data:`qk_attn_interior_op` + the tail."""
+    if torch.compiler.is_compiling():
+        _forward_only((x_windows, *p))
+        a = qk_attn_interior_op(x_windows, list(p[:N_INTERIOR]), num_heads)
+    elif x_windows.device.type == "cpu":
         return qk_attention_pairlocal(x_windows, p, num_heads)
-    a = qk_attn_interior(x_windows, p, num_heads)
+    else:
+        a = qk_attn_interior(x_windows, p, num_heads)
     return qk_attn_tail(a, p, num_heads, x_windows.shape, x_windows.dtype)

@@ -25,6 +25,14 @@ channels-second [T, C, H, W]), both with no affine, each through
 Dispatch: a CUDA tensor launches the kernels (or the call raises), a CPU
 tensor runs the plain twins :func:`psn_spike`, :func:`psn_spike_tm_plain`
 and :func:`psn_backward_plain`. The kernels are built when first launched.
+
+K2 is also the custom op ``sdformerflow_torch::fused_affine_psn``
+(:data:`fused_affine_psn_op`), with a fake form that gives its output's
+shape and dtype. While ``torch.export`` traces, :func:`fused_affine_psn`
+calls the op, so an exported program carries one op node per PSN site; the
+op's real implementation dispatches by device like the eager call, which
+goes straight to the launch. The train path's :class:`FusedAffinePSN`
+(K2 with K2b) is not an op.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -132,6 +140,14 @@ def _launch(kernel, fn, args, device):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
+def _forward_only(kernel, tensors):
+    """Raise if a forward-only call would have to record a gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{kernel} is forward-only: call it under "
+                                  "torch.no_grad() or inference_mode()")
+
+
 def k2_args(x, weight, bias, scale, shift, out):
     """The arguments of ``psn_fwd`` before the stream, for contiguous
     tensors that :func:`prepare_k2` has checked."""
@@ -156,11 +172,7 @@ def prepare_k2(x_seq, weight, bias, *, scale=None, shift=None,
         raise TypeError(f"{kernel} writes float32 or bfloat16, got "
                         f"{out_dtype}")
     _check_site(x_seq, weight, bias, scale, shift, kernel)
-    tensors = [x_seq, weight, bias] + ([] if scale is None
-                                       else [scale, shift])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{kernel} is forward-only: call it under "
-                                  "torch.no_grad() or inference_mode()")
+    _forward_only(kernel, (x_seq, weight, bias, scale, shift))
     x = x_seq.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     args = k2_args(x, weight, bias, scale, shift, out)
@@ -183,15 +195,40 @@ def launch_k2(x_seq, weight, bias, *, scale=None, shift=None, out_dtype=None,
     return out
 
 
-def fused_affine_psn(x_seq, weight, bias, *, scale=None, shift=None):
-    """PSN spikes of [T, ..., C] (optional per-channel affine on the last
-    axis): K2 for a CUDA tensor, :func:`psn_spike` for a CPU tensor.
-    Forward only: call it through :func:`affine_psn` for a gradient."""
+def _site(x_seq: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
+          out_dtype: torch.dtype) -> torch.Tensor:
+    """The real implementation of :data:`fused_affine_psn_op`: K2 for a
+    CUDA tensor (counted on :func:`fused_affine_psn`), :func:`psn_spike`
+    for a CPU tensor; the spikes in ``out_dtype``."""
     if x_seq.device.type == "cpu":
-        return psn_spike(x_seq, weight, bias, scale=scale, shift=shift)
-    out = launch_k2(x_seq, weight, bias, scale=scale, shift=shift)
+        return psn_spike(x_seq, weight, bias, scale=scale,
+                         shift=shift).to(out_dtype)
+    out = launch_k2(x_seq, weight, bias, scale=scale, shift=shift,
+                    out_dtype=out_dtype)
     fused_affine_psn.launches += 1
     return out
+
+
+fused_affine_psn_op = torch.library.custom_op(
+    "sdformerflow_torch::fused_affine_psn", _site, mutates_args=())
+
+
+@fused_affine_psn_op.register_fake
+def _(x_seq, weight, bias, scale, shift, out_dtype):
+    return x_seq.new_empty(x_seq.shape, dtype=out_dtype)
+
+
+def fused_affine_psn(x_seq, weight, bias, *, scale=None, shift=None):
+    """PSN spikes of [T, ..., C] (optional per-channel affine on the last
+    axis): K2 for a CUDA tensor, :func:`psn_spike` for a CPU tensor;
+    while traced, :data:`fused_affine_psn_op`. Forward only: call it
+    through :func:`affine_psn` for a gradient."""
+    if torch.compiler.is_compiling():
+        _forward_only("K2", (x_seq, weight, bias, scale, shift))
+        return fused_affine_psn_op(x_seq, weight, bias, scale, shift,
+                                   x_seq.dtype)
+    return _site(x_seq, weight, bias, scale, shift, x_seq.dtype)
 
 
 fused_affine_psn.launches = 0

@@ -23,6 +23,13 @@ signature and has no effect: the server packs events unsorted
 
 Dispatch: a CUDA tensor launches the kernel (or the call raises), a CPU
 tensor runs the plain twin of ``ops/voxel.py``. Events carry no gradient.
+
+A batch of padded event rows is voxelized by :func:`voxel_batch_signed`,
+also the custom op ``sdformerflow_torch::voxelize_batch``
+(:data:`voxel_batch_signed_op`): it returns a fresh grid, with a fake form
+that gives its shape. While ``torch.export`` traces, the batch goes through
+the op, so an exported events program carries one op node; the eager call
+goes straight to the launches.
 """
 
 from __future__ import annotations
@@ -303,3 +310,50 @@ def events_to_frames_k3(x, y, t, p, *, num_frames, height, width,
             valid=valid, t_range=t_range)
     return voxel_k3(x, y, t, p, mode="frames", num_bins=num_frames,
                     height=height, width=width, valid=valid, t_range=t_range)
+
+
+def _voxel_rows(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor,
+                p: torch.Tensor, valid: torch.Tensor, num_bins: int,
+                height: int, width: int) -> torch.Tensor:
+    """The real implementation of :data:`voxel_batch_signed_op`: K3 once a
+    row for CUDA tensors, each launch writing straight into its row of the
+    grid; the plain twin for CPU tensors."""
+    if t.device.type == "cpu":
+        span = torch.stack(
+            [torch.where(valid, t, float("inf")).amin(dim=-1),
+             torch.where(valid, t, float("-inf")).amax(dim=-1)], dim=-1)
+        return torch.stack([
+            voxel.voxel_grid_signed(x[b], y[b], t[b], p[b],
+                                    num_bins=num_bins, height=height,
+                                    width=width, valid=valid[b],
+                                    t_range=span[b])
+            for b in range(t.shape[0])])
+    out = torch.empty((t.shape[0], num_bins, height, width),
+                      dtype=torch.float32, device=t.device)
+    for b in range(t.shape[0]):
+        voxel_k3(x[b], y[b], t[b], p[b], mode="signed", num_bins=num_bins,
+                 height=height, width=width, valid=valid[b], valid_span=True,
+                 out=out[b])
+    return out
+
+
+voxel_batch_signed_op = torch.library.custom_op(
+    "sdformerflow_torch::voxelize_batch", _voxel_rows, mutates_args=())
+
+
+@voxel_batch_signed_op.register_fake
+def _(x, y, t, p, valid, num_bins, height, width):
+    return x.new_empty((x.shape[0], num_bins, height, width),
+                       dtype=torch.float32)
+
+
+def voxel_batch_signed(x, y, t, p, valid, *, num_bins, height, width):
+    """Padded event rows -> signed voxel grids: x/y/t/p float32 and valid
+    bool, [B, N] -> [B, num_bins, H, W] float32, each row's ``t_range`` the
+    span of its valid events, so padding slots never stretch it. K3 once a
+    row for CUDA tensors, the plain twin for CPU tensors; while traced,
+    :data:`voxel_batch_signed_op`."""
+    if torch.compiler.is_compiling():
+        return voxel_batch_signed_op(x, y, t, p, valid, num_bins, height,
+                                     width)
+    return _voxel_rows(x, y, t, p, valid, num_bins, height, width)

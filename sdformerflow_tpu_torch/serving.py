@@ -25,9 +25,9 @@ STT config). Events are voxelized into ``data.num_frames`` bins, as in
 JAX, so where the model takes another count (the STT configs' two chunks)
 an events request fails with a ``ValueError`` that says so.
 
-Not ported: mesh batching (one request is one batch-1 forward), the
-fused-attention option (the port's eval attention always runs K1), and the
-HTTP wrapper ``scripts/serve.py``.
+Not ported: mesh batching (one request is one batch-1 forward) and the
+fused-attention option (the port's eval attention always runs K1). The
+HTTP front is ``serve.py`` (``python -m sdformerflow_tpu_torch.serve``).
 """
 
 from __future__ import annotations
@@ -42,10 +42,8 @@ import numpy as np
 import torch
 
 from . import native
-from .models.registry import get_model
-from .training.checkpoints import restore_checkpoint
-from .training.config import build_configs, chunk_bins
-from .training.s2d_embed import s2d_embed_state_dict
+from .training.config import chunk_bins
+from .training.export import build_inference_state, step_kwargs
 from .training.train_step import make_eval_step
 
 
@@ -64,8 +62,10 @@ class FlowServer:
     state_dict: the model's weights (e.g. ``training.from_jax.from_jax``);
         ``None`` keeps the model's initialization.
     ckpt: a checkpoint directory of the port's trainer
-        (``training/checkpoints.py``), restored into the model alone before
-        the bf16 cast; not together with ``state_dict``.
+        (``training/checkpoints.py``) or a ``.pt`` under the reference's
+        state_dict names, restored into the model alone before the bf16
+        cast; not together with ``state_dict``. The model is built by
+        ``training.export.build_inference_state``, as the exporter's.
     device: where the model runs (``"cuda"`` launches the Hopper kernels).
     bf16: run the bf16 inference path (params and activations bf16, BN
         statistics float32) - the deployment path.
@@ -79,45 +79,22 @@ class FlowServer:
     def __init__(self, config: dict, state_dict: Optional[dict] = None, *,
                  ckpt: Optional[str] = None, device="cuda", bf16: bool = True,
                  max_pending: int = 8, s2d: bool = False):
-        if state_dict is not None and ckpt is not None:
-            raise ValueError("give state_dict or ckpt, not both")
-        model_cfg, swin_cfg, spiking_cfg = build_configs(config)
-        name = config["model"]["name"]
-        self._input_bins = chunk_bins(config)
-        model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
-                          input_bins=self._input_bins)
-        if state_dict is not None:
-            model.load_state_dict(state_dict)
-        if ckpt is not None:
-            restore_checkpoint(ckpt, model)
-        if s2d:
-            s2d_state = s2d_embed_state_dict(model.state_dict())
-            model = get_model(name, model_cfg, swin_cfg,
-                              spiking_cfg.replace(s2d_embed=True))
-            model.load_state_dict(s2d_state)
         self.device = torch.device(device)
-        model.to(self.device)
-
-        is_snn = "Spiking" in name
+        model = build_inference_state(config, ckpt, s2d, device=self.device,
+                                      state_dict=state_dict)
+        self._input_bins = chunk_bins(config)
         self._num_bins = config["data"].get("num_frames", 10)
         self._resolution = tuple(config["loader"].get("resolution",
                                                       (480, 640)))
         crop = config["loader"].get("crop")
         self._crop = tuple(crop) if crop else None
-        kw = dict(encoding=config["model"].get("encoding", "voxel"),
-                  polarity=config["loader"].get("polarity", True) and is_snn,
-                  norm_input=config["model"].get("norm_input"),
-                  spike_th=config["data"].get("spike_th"),
-                  compute_dtype=torch.bfloat16 if bf16 else None)
-        self._step = make_eval_step(model, **kw)
+        self._step = make_eval_step(
+            model, **step_kwargs(config, bf16=bf16, events=False))
         self.model = self._step.model
         # the events step runs the same cast model: voxelize at sensor
         # resolution, center crop, forward
         self._events_step = make_eval_step(
-            self.model, **kw, crop=self._crop,
-            voxelize=dict(num_bins=self._num_bins,
-                          height=self._resolution[0],
-                          width=self._resolution[1]))
+            self.model, **step_kwargs(config, bf16=bf16, events=True))
 
         self._requests: "queue_mod.Queue" = queue_mod.Queue(
             maxsize=max_pending)

@@ -18,9 +18,8 @@ import torch.nn as nn
 from ..losses import flow_loss_supervised
 from ..models.spiking_layers import TorchBatchNorm
 from ..ops.hopper_embed import fused_embed_forward
-from ..ops.hopper_voxel import voxel_k3
+from ..ops.hopper_voxel import voxel_batch_signed
 from ..ops.normalization import encode_input
-from ..ops.voxel import voxel_grid_signed
 from .evaluate import event_footprint_mask
 from .remat import Remat
 
@@ -39,30 +38,17 @@ def voxelize_batch(events, *, num_bins, height, width, presorted=False):
     dict(x, y, t, p, valid) of [B, N] tensors (x/y/t/p float32, valid
     bool) -> [B, num_bins, H, W] float32, through K3 on the card: one
     launch a row, which finds its row's span itself and writes straight
-    into its row of the output.
+    into its row of the output (``hopper_voxel.voxel_batch_signed``, one
+    op call when traced).
 
     Each row's ``t_range`` is the span of its valid events, so padding
     slots never stretch it. ``presorted`` is accepted for the JAX signature;
     K3 sorts on the card and ignores it.
     """
     del presorted
-    x, y, t, p, valid = (events[k] for k in ("x", "y", "t", "p", "valid"))
-    if t.device.type == "cpu":
-        span = torch.stack(
-            [torch.where(valid, t, float("inf")).amin(dim=-1),
-             torch.where(valid, t, float("-inf")).amax(dim=-1)], dim=-1)
-        return torch.stack([
-            voxel_grid_signed(x[b], y[b], t[b], p[b], num_bins=num_bins,
-                              height=height, width=width, valid=valid[b],
-                              t_range=span[b])
-            for b in range(t.shape[0])])
-    out = torch.empty((t.shape[0], num_bins, height, width),
-                      dtype=torch.float32, device=t.device)
-    for b in range(t.shape[0]):
-        voxel_k3(x[b], y[b], t[b], p[b], mode="signed", num_bins=num_bins,
-                 height=height, width=width, valid=valid[b], valid_span=True,
-                 out=out[b])
-    return out
+    return voxel_batch_signed(*(events[k] for k in ("x", "y", "t", "p",
+                                                    "valid")),
+                              num_bins=num_bins, height=height, width=width)
 
 
 def center_crop(chunk: torch.Tensor, crop) -> torch.Tensor:
@@ -167,6 +153,38 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     return train_step
 
 
+class EvalStep(nn.Module):
+    """The eval step's forward, ``chunk -> [flow]`` (coarse -> fine,
+    float32), as a module that ``torch.export`` can trace: it sets no mode
+    and enters no ``inference_mode`` (:func:`make_eval_step` does both
+    around it). The encoded input is cast to ``compute_dtype`` if given,
+    else to the model's parameter dtype, as JAX promotes it."""
+
+    def __init__(self, model: nn.Module, *, encoding, polarity, norm_input,
+                 spike_th, compute_dtype, voxelize, crop, fused_embed,
+                 num_steps):
+        super().__init__()
+        self.model = model
+        self.input_kw = dict(encoding=encoding, polarity=polarity,
+                             norm_input=norm_input, spike_th=spike_th)
+        self.compute_dtype, self.voxelize, self.crop = (compute_dtype,
+                                                        voxelize, crop)
+        self.fused_embed, self.num_steps = fused_embed, num_steps
+
+    def forward(self, chunk):
+        x = _model_input(chunk, None, self.voxelize, self.crop,
+                         **self.input_kw)
+        x = x.to(self.compute_dtype
+                 or next(self.model.parameters()).dtype)
+        if not self.fused_embed:
+            out = self.model(x)
+        else:
+            out = self.model(x, fused_embed_forward(
+                self.model.sttmultires_unet.encoders.patch_embed, x,
+                num_steps=self.num_steps))
+        return [f.float() for f in out["flow"]]
+
+
 def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                    norm_input="minmax", spike_th=None, compute_dtype=None,
                    voxelize=None, crop=None, use_batch_stats=False,
@@ -196,6 +214,9 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
     ``pre_embedded`` input. It needs running-statistics BN and
     ``num_steps``, and the base embed (not ``cfg.s2d_embed``, whose
     block-space head the composition does not take); else it raises.
+
+    The step runs :class:`EvalStep` (``eval_step.module``) under
+    ``torch.inference_mode()``; ``eval_step.model`` is the (cast) model.
     """
     if fused_embed:
         if use_batch_stats or num_steps is None:
@@ -207,9 +228,11 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
     if compute_dtype is not None and any(
             p.dtype != compute_dtype for p in model.parameters()):
         model = cast_params(copy.deepcopy(model), compute_dtype)
-    model.eval()
-    kw = dict(encoding=encoding, polarity=polarity, norm_input=norm_input,
-              spike_th=spike_th)
+    module = EvalStep(model, encoding=encoding, polarity=polarity,
+                      norm_input=norm_input, spike_th=spike_th,
+                      compute_dtype=compute_dtype, voxelize=voxelize,
+                      crop=crop, fused_embed=fused_embed,
+                      num_steps=num_steps).eval()
 
     def eval_step(chunk):
         with torch.inference_mode():
@@ -219,16 +242,8 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                           generator=torch.Generator(dev).manual_seed(0))
             elif model.training:
                 model.eval()
-            x = _model_input(chunk, None, voxelize, crop, **kw)
-            if compute_dtype is not None:
-                x = x.to(compute_dtype)
-            embedded = None
-            if fused_embed:
-                embedded = fused_embed_forward(
-                    model.sttmultires_unet.encoders.patch_embed, x,
-                    num_steps=num_steps)
-            out = model(x, embedded) if fused_embed else model(x)
-            return [f.float() for f in out["flow"]]
+            return module(chunk)
 
     eval_step.model = model
+    eval_step.module = module
     return eval_step

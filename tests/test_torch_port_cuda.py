@@ -577,3 +577,56 @@ def test_eval_entry_on_a_tiny_tree(dev, tmp_path, monkeypatch):
     want = acc.results()
     for k in want:
         assert results[0][k] == pytest.approx(want[k], rel=1e-5), k
+
+
+def test_custom_ops_launch_on_the_card(dev):
+    """The kernels' custom ops on CUDA tensors, as an exported program calls
+    them: ``torch.library.opcheck`` (the schema, the fake form against the
+    launch, the dispatch through aot_autograd), one counted launch a call
+    (K3 one a row), and bitwise the plain twin's result on dyadic inputs."""
+    # the first case of test_k1_matches_plain_bitwise: its sites fire
+    C, nh = 32, 4
+    gen = torch.Generator().manual_seed(12 + C)
+    g = lambda *s, step=0.125, lo=-1.0, hi=1.0: _grid(  # noqa: E731
+        s, step, lo, hi, gen).to(dev)
+    p = hopper_attn.QKAttnParams(
+        w_in=g(2, 2, step=0.25), b_in=g(2, step=0.25), wq=g(C, C),
+        aq=g(C, step=0.25, lo=0.25, hi=2.0), cq=g(C),
+        w_q=g(2, 2, step=0.25), b_q=g(2, step=0.25), wk=g(C, C),
+        ak=g(C, step=0.25, lo=0.25, hi=2.0), ck=g(C), pe=g(2, 81, C),
+        w_k=g(2, 2, step=0.25), b_k=g(2, step=0.25), w_t=g(2, 2, step=0.25),
+        b_t=g(2, step=1.0, lo=-4.0, hi=0.0), wp=g(C, C), bp=g(C), ap=g(C),
+        cp=g(C))
+    x = g(2, 12, 9, 9, C, step=0.25, lo=-2.0, hi=2.0).to(torch.bfloat16)
+    k1 = (x, list(p[:hopper_attn.N_INTERIOR]), nh)
+    xs = g(10, 2, 6, 7, C, step=0.25, lo=-2.0, hi=2.0)
+    k2 = (xs, g(10, 10, step=0.125), g(10, 1, step=0.25),
+          g(C, step=0.25, lo=0.25, hi=2.0), g(C), torch.bfloat16)
+    h, w, bins, n = 40, 56, 5, 3000
+    t = torch.randint(0, 4 * (bins - 1) + 1, (2, n), generator=gen)
+    t[:, :2] = torch.tensor([0, 4 * (bins - 1)])
+    ev = [torch.randint(0, w, (2, n), generator=gen),
+          torch.randint(0, h, (2, n), generator=gen), t,
+          torch.randint(0, 2, (2, n), generator=gen)]
+    k3 = (*(e.float().to(dev) for e in ev), torch.ones(2, n, dtype=torch.bool,
+                                                       device=dev), bins, h, w)
+    cases = [(hopper_attn.qk_attn_interior_op, k1, hopper_attn.qk_attn_interior,
+              1, hopper_attn._interior),
+             (hopper_psn.fused_affine_psn_op, k2, hopper_psn.fused_affine_psn,
+              1, hopper_psn._site),
+             (hopper_voxel.voxel_batch_signed_op, k3, hopper_voxel.voxel_k3,
+              2, hopper_voxel._voxel_rows)]
+    for op, args, wrapper, per_call, impl in cases:
+        with torch.inference_mode():
+            before = wrapper.launches
+            got = op(*args)
+            assert wrapper.launches == before + per_call
+            cpu = [a.cpu() if isinstance(a, torch.Tensor)
+                   else [t.cpu() for t in a] if isinstance(a, list) else a
+                   for a in args]
+            want = impl(*cpu)
+        torch.cuda.synchronize()
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+        assert got.float().abs().sum() > 0
+        result = torch.library.opcheck(op, args)
+        assert set(result.values()) == {"SUCCESS"}, result
