@@ -172,7 +172,26 @@ Phases (any failure exits non-zero):
    to the in-process ``FlowServer.infer``, ``/stats``, ``/healthz``, then
    SIGTERM and a clean exit; ``bench_serving --requests 32``. The JSON
    line ``{"deploy": ...}`` before the kernels line holds them, and each
-   kernel entry's ``launches_export`` the reloaded programs' launches.
+   kernel entry's ``launches_export`` the reloaded programs' launches;
+16. the rest of the train slice and the re-expressions: the seeded en4
+   weights folded (``training/bn_folding.py:fold_model``) and served in
+   bf16 through ``make_eval_step`` at 288x384: K1 12 and K2 45 launches a
+   request, each launch against its twin, every spike site against the
+   unfolded model's (the first differing site within rounding, the AEE
+   for information), p50 and device busy beside the unfolded forward's;
+   one float32 en4 train step with ``cfg.s2d_train`` on the same weights
+   (K2 and K2b 93 launches each, every K2 launch against its twin, K2b's
+   dx at the 4 x 48-channel block-space head within 1e-5 of the float64
+   twin's largest, the loss against the plain twins' step from the same
+   state), K2 and K2b alone at that site beside their twins and bounds,
+   and its p50 / p90, device busy and peak memory beside the base step's;
+   ``train_dsec --synthetic --max_steps 4`` on the en4 config written
+   anew with Adam, SGD + one_cycle and AdamW + num_acc 2, each with
+   Rotation first in ``loader.augment``: finite losses, steps / num_acc
+   updates, the median wait of a step for its prefetched batch. The JSON
+   line ``{"train_slice": ...}`` before the kernels line holds them, and
+   each kernel entry's ``launches_folded_forward`` and
+   ``launches_s2d_train_step`` the launches of those runs.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -2882,7 +2901,7 @@ def eval_split(torch, dev, config, rec, make_dataset, n=8):
 
 def dsec_train(torch, argv, TL, P):
     """``train_dsec.main(argv)`` with each step's loss and K2 / K2b
-    launches recorded."""
+    launches recorded; returns (steps, seconds, model, optimizer)."""
     from sdformerflow_tpu_torch import train_dsec
     steps = []
 
@@ -2905,7 +2924,7 @@ def dsec_train(torch, argv, TL, P):
     t0 = time.perf_counter()
     with patched(TL, "make_train_step", counted):
         model, opt = train_dsec.main(argv)
-    return steps, time.perf_counter() - t0, model
+    return steps, time.perf_counter() - t0, model, opt
 
 
 def phase_dsec_eval(torch, dev, config, state_dict, card):
@@ -3121,7 +3140,7 @@ def phase_dsec_eval(torch, dev, config, state_dict, card):
     train = {}
     for name, cfg_path in (("voxel", CONFIG), ("events", events_train)):
         run_dir = os.path.join(root, f"train_{name}")
-        steps, wall, model = dsec_train(torch, [
+        steps, wall, model, _ = dsec_train(torch, [
             "--config", cfg_path, "--path", tree, "--max_steps", "2",
             "--run_dir", run_dir], TL, P)
         del model
@@ -4482,6 +4501,326 @@ def phase_deploy(torch, dev, config, state_dict, card):
         phase_s=phase_s)
 
 
+# ----------------------------------------------------------- phase 16
+# the rest of the train slice and the re-expressions: the folded serving
+# forward (K1 and K2 on folded weights), the s2d_train step (K2 / K2b in
+# block space at 4 x 48 channels) and train_dsec with the optimizers,
+# num_acc, Rotation and the prefetcher
+
+N_FOLD_REQUESTS = 16     # interleaved latency requests per path
+N_S2D_STEPS = 6          # timed train steps per model, the first 2 warm-up
+N_OPTION_STEPS = 4       # train_dsec --max_steps of each optimizer run
+BLOCK_HEAD = (10, 1, 144, 192, 192)   # the s2d_train head's fused site
+
+
+def fold_serving(torch, dev, config, state_dict, hw, card):
+    """The seeded en4 folded (``fold_model``, float32) and served in bf16
+    through ``make_eval_step``, beside the unfolded model: K1 and K2
+    launches a request, each launch against its twin, the spike sites of
+    the two models against each other, p50 and device busy."""
+    from sdformerflow_tpu_torch.losses import aee_metrics
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.models.spiking_layers import FoldedNorm
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training.bn_folding import fold_model
+    from sdformerflow_tpu_torch.training.config import build_configs
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    model_cfg, swin, cfg = build_configs(config)
+    model = get_model(config["model"]["name"], model_cfg, swin, cfg)
+    model.load_state_dict(state_dict)
+    folded = fold_model(model)
+    n_folded = sum(isinstance(m, FoldedNorm) for m in folded.modules())
+    check(folded.cfg.fold_bn and n_folded > 0
+          and not any("running" in k for k in folded.state_dict()),
+          f"fold_model left BN entries ({n_folded} sites folded)")
+    steps = {name: make_eval_step(m.to(dev), compute_dtype=torch.bfloat16)
+             for name, m in (("unfolded", model), ("folded", folded))}
+    chunks = [torch.from_numpy(r)[None].to(dev)
+              for r in voxel_requests(N_FOLD_REQUESTS, 10, hw, SEED + 60)]
+    A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
+    flow = steps["folded"](chunks[0])[-1]
+    torch.cuda.synchronize()
+    k1, k2 = A.qk_attn_interior.launches, P.fused_affine_psn.launches
+    check(k1 == 12 and k2 == 45, f"folded forward: K1 {k1}, K2 {k2} "
+          "launches, expected 12 and 45")
+    check(flow.shape == (1, 2) + tuple(hw)
+          and bool(torch.isfinite(flow).all()), "folded flow")
+    checked = checked_forward(torch, steps["folded"], chunks[0], "[16] "
+                              "folded")
+    recs = {name: [] for name in steps}
+    for name, step in steps.items():
+        psn, attend, _ = spike_recorders(recs[name])
+        with site_functions(psn, attend):
+            out = step(chunks[0])[-1].double()
+        recs[name + "_flow"] = out
+    n_flip, n, first, share = path_flips(recs["unfolded"], recs["folded"])
+    check(share <= MAX_FLIP_SHARE, f"folded vs unfolded: {share:.3g} of the "
+          f"first differing site's spikes flipped (site {first})")
+    ones = torch.ones_like(recs["folded_flow"][:, :1])
+    aee = aee_metrics(recs["folded_flow"], recs["unfolded_flow"],
+                      ones)["AEE"].item()
+    lat = {name: [] for name in steps}
+    for c in chunks:
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(c)
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    busy = {name: device_ms_per_call(torch, lambda: step(chunks[0]), 4)
+            for name, step in steps.items()}
+    p50 = {name: float(np.percentile(v, 50)) for name, v in lat.items()}
+    log(f"[16] folded serving forward (en4 bf16 288x384, batch 1, "
+        f"{n_folded} BN sites folded): K1 {k1}, K2 {k2} launches a "
+        f"request; against the twins K1 {checked['flips']['K1'][0]} of "
+        f"{checked['flips']['K1'][1]} and K2 {checked['flips']['K2'][0]} of "
+        f"{checked['flips']['K2'][1]} spikes flipped; folded vs unfolded: "
+        f"{n_flip} of {n} spikes differ (first at site {first}, "
+        f"{share:.3g} of it), AEE {aee:.6g} (information only)")
+    log(f"[16] on {card}, {N_FOLD_REQUESTS} requests interleaved: p50 "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in p50.items())
+        + "; device busy per request " + ", ".join(
+            f"{k} " + ("not measured" if v is None else f"{v:.3f} ms")
+            for k, v in busy.items()))
+    del steps, model, folded
+    torch.cuda.empty_cache()
+    return dict(launches={"K1": k1, "K2": k2}, sites_folded=n_folded,
+                twin_flips={k: v[0] for k, v in checked["flips"].items()},
+                twin_spikes={k: v[1] for k, v in checked["flips"].items()},
+                path_flipped=n_flip, path_spikes=n, first_site=first,
+                first_site_share=share, aee_vs_unfolded=aee, p50_ms=p50,
+                device_ms=busy)
+
+
+def block_site_times(torch, x, g, w, b, kw):
+    """K2 and K2b alone at the block-space head site beside their twins
+    and bounds (float32)."""
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    T, n_col, C = x.shape[0], x.numel() // x.shape[0], x.shape[-1]
+    launch_f = P.prepare_k2(x, w, b, **kw)[0]
+    launch_b = P.prepare_k2b(x, g, w, b, **kw)[0]
+    fwd_bound = bound(2 * nbytes(x) + (T * T + T) * 4 + 2 * C * 4,
+                      (2 * T * T + 2 * T) * n_col, F32_FLOP_S)
+    bwd_bound = bound(3 * nbytes(x) + 2 * (T * T + T) * 4 + 4 * C * 4,
+                      (6 * T * T + 10 * T) * n_col, F32_FLOP_S)
+    return dict(
+        k2_ms=cuda_time_ms(launch_f),
+        k2_plain_ms=cuda_time_ms(lambda: P.psn_spike(x, w, b, **kw)),
+        k2_bound_ms=fwd_bound[0], k2_bound_by=fwd_bound[1],
+        k2b_ms=cuda_time_ms(launch_b),
+        k2b_plain_ms=cuda_time_ms(
+            lambda: P.psn_backward_plain(x, g, w, b, **kw)),
+        k2b_bound_ms=bwd_bound[0], k2b_bound_by=bwd_bound[1])
+
+
+def s2d_train_step(torch, dev, config, state_dict, card):
+    """One en4 float32 train step with ``cfg.s2d_train`` (the seeded base
+    weights, loaded unchanged): K2 and K2b 93 launches each, every K2
+    launch against its twin, K2b's dx at the block-space head against the
+    float64 twin, the loss against the plain twins' step from the same
+    state; then p50 / p90, device busy and peak memory beside the base
+    model's step."""
+    import copy
+    import functools
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training.config import build_configs
+    from sdformerflow_tpu_torch.training.optim import build_optimizer
+    from sdformerflow_tpu_torch.training.train_step import make_train_step
+    model_cfg, swin, cfg = build_configs(config)
+    batch = train_batch(torch, dev, TRAIN_HW, SEED + 61)
+
+    def trainer(spiking_cfg):
+        model = get_model(config["model"]["name"], model_cfg, swin,
+                          spiking_cfg, train=True)
+        model.load_state_dict(state_dict)
+        model.float().to(dev)
+        opt = build_optimizer(model.named_parameters(), lr=1e-4)
+        return model, opt, make_train_step(
+            model, opt, norm_input="minmax",
+            generator=torch.Generator(dev).manual_seed(SEED))
+
+    model, opt, step = trainer(cfg.replace(s2d_train=True))
+    state0 = copy.deepcopy(model.state_dict())
+    flips, block = [0, 0], {}
+
+    def checked_fwd(x, w, b, *, scale=None, shift=None):
+        y = P.fused_affine_psn(x, w, b, scale=scale, shift=shift)
+        flips[0] += int((y != P.psn_spike(x, w, b, scale=scale,
+                                          shift=shift)).sum())
+        flips[1] += y.numel()
+        return y
+
+    def checked_bwd(x, g, w, b, **kw):
+        got = P.fused_psn_backward(x, g, w, b, **kw)
+        if tuple(x.shape) == BLOCK_HEAD:
+            want = plain64(P, x, g, w, b, **kw)
+            block.update(errors=k2b_errors(got, want), affine=kw.get(
+                "scale") is not None, site=(
+                    x.detach().clone(), g.detach().clone(), w.detach(),
+                    b.detach(), {k: kw[k].detach() for k in ("scale", "shift")
+                                 if kw.get(k) is not None}))
+        return got
+
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    impl = P.PSNImpl(checked_fwd, checked_bwd)
+    with site_functions(functools.partial(P.affine_psn, impl=impl)):
+        loss_k = step(batch)["loss"].item()
+    k2, k2b = P.fused_affine_psn.launches, P.fused_psn_backward.launches
+    check(k2 == 93 and k2b == 93, f"s2d_train step: K2 {k2}, K2b {k2b} "
+          "launches, expected 93 each")
+    check(block.get("affine") and block["errors"]["dx"] <= K2B_TOL,
+          f"K2b at the block-space head {BLOCK_HEAD}: {block}")
+    check(flips[0] <= MAX_FLIP_SHARE * flips[1],
+          f"s2d_train step: K2 flipped {flips[0]} of {flips[1]} spikes")
+    times = block_site_times(torch, *block.pop("site"))
+    # the plain twins' step from the same state, batch and drop-path draws
+    model.load_state_dict(state0)
+    opt = build_optimizer(model.named_parameters(), lr=1e-4)
+    plain_step = make_train_step(
+        model, opt, norm_input="minmax",
+        generator=torch.Generator(dev).manual_seed(SEED))
+    with site_functions(functools.partial(P.affine_psn, impl=P.PLAIN)):
+        loss_p = plain_step(batch)["loss"].item()
+    if flips[0] == 0:
+        check(loss_k == loss_p, f"s2d_train: no spike flipped, yet the "
+              f"losses differ: {loss_k} vs {loss_p}")
+    check(np.isfinite(loss_k), f"s2d_train loss {loss_k}")
+    del plain_step, step
+    # the s2d_train step beside the base step, interleaved
+    runs = {"base": trainer(cfg), "s2d_train": (model, opt, make_train_step(
+        model, opt, norm_input="minmax",
+        generator=torch.Generator(dev).manual_seed(SEED)))}
+    # peak: the card's peak during the step (both models resident) and
+    # its rise above what was allocated before the step
+    ms, peak, rise = {k: [] for k in runs}, {}, {}
+    counts = {k: [] for k in runs}
+    for i in range(N_S2D_STEPS):
+        for name, (_, _, st) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            c0 = (P.fused_affine_psn.launches, P.fused_psn_backward.launches)
+            t0 = time.perf_counter()
+            st(batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            top = torch.cuda.max_memory_allocated()
+            peak[name] = max(peak.get(name, 0.0), top / 2 ** 30)
+            rise[name] = max(rise.get(name, 0.0), (top - before) / 2 ** 30)
+            counts[name].append((P.fused_affine_psn.launches - c0[0],
+                                 P.fused_psn_backward.launches - c0[1]))
+    check(all(c == (93, 93) for v in counts.values() for c in v),
+          f"K2 / K2b launches per step: {counts}")
+    busy = {name: device_ms_per_call(torch, lambda: st(batch), 2)
+            for name, (_, _, st) in runs.items()}
+    pct = {name: [float(x) for x in np.percentile(v[2:], [50, 90])]
+           for name, v in ms.items()}
+    log(f"[16] s2d_train step (en4 f32, TF32 off, 288x384, batch 1, the "
+        f"base weights): K2 {k2}, K2b {k2b} launches; K2 flipped {flips[0]} "
+        f"of {flips[1]} spikes against its twin; K2b at the block-space "
+        f"head {list(BLOCK_HEAD)} against the float64 twin: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in block["errors"].items())
+        + f"; loss kernels {loss_k!r}, plain twins {loss_p!r}")
+    log(f"[16] block-space head alone (f32): K2 {times['k2_ms']:.4f} ms "
+        f"(twin {times['k2_plain_ms']:.4f}, bound {times['k2_bound_ms']:.4f}"
+        f" {times['k2_bound_by']}), K2b {times['k2b_ms']:.4f} ms (twin "
+        f"{times['k2b_plain_ms']:.4f}, bound {times['k2b_bound_ms']:.4f} "
+        f"{times['k2b_bound_by']})")
+    log(f"[16] on {card}, {N_S2D_STEPS} steps each interleaved (2 warm-up): "
+        + "; ".join(f"{k} p50 {pct[k][0]:.2f} ms, p90 {pct[k][1]:.2f}, "
+                    f"device busy " + ("not measured" if busy[k] is None
+                                       else f"{busy[k]:.2f} ms")
+                    + f", peak {peak[k]:.3f} GiB ({rise[k]:.3f} above "
+                    "the resident state)" for k in runs))
+    del runs, model, opt
+    torch.cuda.empty_cache()
+    return dict(launches={"K2": k2, "K2b": k2b}, k2_flipped=flips[0],
+                k2_spikes=flips[1], block_k2b_errors=block["errors"],
+                loss_kernels=loss_k, loss_plain=loss_p, block_site=times,
+                p50_ms={k: v[0] for k, v in pct.items()},
+                p90_ms={k: v[1] for k, v in pct.items()},
+                device_ms=busy, peak_gib=peak, peak_rise_gib=rise)
+
+
+def trainer_options(torch, dev, card):
+    """``train_dsec --synthetic --max_steps`` on the en4 config written
+    anew with Adam, SGD + one_cycle and AdamW + num_acc 2, each with
+    Rotation first in ``loader.augment``: finite losses, one update per
+    ``num_acc`` steps, and the median wait of a step for its batch."""
+    import copy
+    import shutil
+    import tempfile
+    import yaml
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training import train_loop as TL
+    from sdformerflow_tpu_torch.training.config import load_config
+    base = load_config(CONFIG)
+    options = {"Adam": dict(name="Adam"),
+               "SGD_one_cycle": dict(name="SGD", scheduler="one_cycle"),
+               "AdamW_num_acc_2": dict(name="AdamW", num_acc=2)}
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="smoke_options_")
+    try:
+        for label, opt_kw in options.items():
+            config = copy.deepcopy(base)
+            config["optimizer"].update(opt_kw)
+            config["loader"].update(
+                augment=["Rotation", "Horizontal", "Vertical"],
+                augment_prob=[0.5, 0.5, 0.5], rotation_degrees=[-30, 30])
+            path = os.path.join(tmp, label + ".yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(config, f)
+            run_dir = os.path.join(tmp, label)
+            steps, wall, model, opt = dsec_train(torch, [
+                "--config", path, "--synthetic", "--max_steps",
+                str(N_OPTION_STEPS), "--run_dir", run_dir, "--device",
+                str(dev)], TL, P)
+            num_acc = opt_kw.get("num_acc", 1)
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                recs = {r["name"]: r["value"] for r in map(json.loads, f)}
+            losses = [s[0] for s in steps]
+            check(len(steps) == N_OPTION_STEPS and all(np.isfinite(losses))
+                  and np.isfinite(recs["train_loss"]),
+                  f"{label}: losses {losses}, metrics {recs}")
+            check(type(opt).__name__ == opt_kw["name"]
+                  and opt.gradient_step == N_OPTION_STEPS // num_acc
+                  and int(opt.count) == N_OPTION_STEPS // num_acc
+                  and int(opt.notfinite_count) == 0,
+                  f"{label}: {type(opt).__name__}, {opt.gradient_step} "
+                  f"updates, {int(opt.count)} applied, "
+                  f"{int(opt.notfinite_count)} skipped")
+            out[label] = dict(losses=losses, updates=opt.gradient_step,
+                              seconds=wall,
+                              batch_wait_ms_p50=recs["batch_wait_ms_p50"],
+                              launches_per_step={"K2": steps[0][1],
+                                                 "K2b": steps[0][2]})
+            log(f"[16] train_dsec --synthetic --max_steps {N_OPTION_STEPS}, "
+                f"{label} (Rotation, flips): losses "
+                + ", ".join(f"{v:.4g}" for v in losses)
+                + f"; {opt.gradient_step} updates; a step waited "
+                f"{recs['batch_wait_ms_p50']:.3f} ms (median) for its batch;"
+                f" {wall:.1f} s with validation, on {card}")
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_train_slice(torch, dev, config, state_dict, card):
+    t_phase = time.perf_counter()
+    hw = tuple(config["loader"]["crop"])
+    folded = fold_serving(torch, dev, config, state_dict, hw, card)
+    s2d = s2d_train_step(torch, dev, config, state_dict, card)
+    options = trainer_options(torch, dev, card)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[16] phase 16: {phase_s:.1f} s")
+    return dict(folded=folded, s2d_train=s2d, trainer_options=options,
+                phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -4543,6 +4882,7 @@ def main() -> int:
         ann = phase_ann(torch, dev, card)
         mdr = phase_mdr(torch, dev, card)
         deploy = phase_deploy(torch, dev, config, state_dict, card)
+        slice16 = phase_train_slice(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4562,7 +4902,8 @@ def main() -> int:
     # ANN paths (phase 13) launch none; the MDR / MVSEC runs' (phase 14):
     # train_mdr en4 (K2, K2b and the validations' K1), train_mdr STT (none)
     # and eval_mvsec dt1 / dt4; the exported programs' (phase 15): 8 voxel
-    # and 8 events requests reloaded in a fresh process
+    # and 8 events requests reloaded in a fresh process; the folded serving
+    # forward's and the s2d_train step's (phase 16)
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -4657,6 +4998,10 @@ def main() -> int:
         entry["launches_mdr_mvsec"] = {run: counts[key] for run, counts
                                        in mdr["launches"].items()}
         entry["launches_export"] = deploy["launches_export"][key]
+        entry["launches_folded_forward"] = slice16["folded"]["launches"] \
+            .get(key, 0)
+        entry["launches_s2d_train_step"] = slice16["s2d_train"]["launches"] \
+            .get(key, 0)
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -4675,6 +5020,7 @@ def main() -> int:
     log(json.dumps({"ann": ann}))
     log(json.dumps({"mdr_mvsec": mdr}))
     log(json.dumps({"deploy": deploy}))
+    log(json.dumps({"train_slice": slice16}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Train-time augmentation of (events, flow, mask) batches on the device, a
 mirror of ``sdformerflow_tpu/data/augmentation.py``: random crop, horizontal
 and vertical flips (with the flow's sign fixed), polarity flip and event
-drop, composed by :func:`build_train_augmentation`.
+drop, and the rotation with flips (:func:`rotate_flip`), composed by
+:func:`build_train_augmentation`.
 
 Each transform is a plain function of its decisions (crop corner, flip or
 not, keep mask), so it can be held against the JAX transform at fixed
@@ -14,6 +15,7 @@ flips are shared across the batch, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -53,6 +55,53 @@ def event_drop(events, keep):
     return events * keep
 
 
+def rotate_flip(events, flow, mask, angle: float, hflip: bool,
+                vflip: bool):
+    """Rotate by ``angle`` degrees and mirror (``hflip`` / ``vflip``), the
+    same transform for the whole batch: JAX ``rotation_flip``
+    (``data/augmentation.py:75-113``, the reference's RandomRotationFlip)
+    at fixed decisions. Output pixel (y, x) samples the input bilinearly at
+    ``A @ (x, y)`` in normalized coordinates (torch ``affine_grid``'s
+    convention), ``A = [[c h, -s h], [s v, c v]]`` with h, v = -1 where
+    mirrored; a corner outside the frame counts as 0
+    (``map_coordinates(order=1, mode="constant")``). The flow vectors then
+    turn by ``A^-1``; the mask comes back as float32, as JAX's."""
+    h, w = events.shape[-2], events.shape[-1]
+    dev = events.device
+    a = math.radians(angle)
+    c, s = math.cos(a), math.sin(a)
+    fh, fv = (-1.0 if hflip else 1.0), (-1.0 if vflip else 1.0)
+    A = torch.tensor([[c * fh, -s * fh], [s * fv, c * fv]],
+                     dtype=torch.float64)
+    ys = (torch.arange(h, dtype=torch.float64) + 0.5) / h * 2.0 - 1.0
+    xs = (torch.arange(w, dtype=torch.float64) + 0.5) / w * 2.0 - 1.0
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    px = (A[0, 0] * gx + A[0, 1] * gy + 1.0) * w / 2.0 - 0.5
+    py = (A[1, 0] * gx + A[1, 1] * gy + 1.0) * h / 2.0 - 0.5
+    x0, y0 = px.floor(), py.floor()
+    corners = []     # (row index, column index, weight) of the 4 corners
+    for yi, wy in ((y0, 1.0 - (py - y0)), (y0 + 1, py - y0)):
+        for xi, wx in ((x0, 1.0 - (px - x0)), (x0 + 1, px - x0)):
+            inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            corners.append((yi.clamp(0, h - 1).long().to(dev),
+                            xi.clamp(0, w - 1).long().to(dev),
+                            (wy * wx * inside).to(dev)))
+
+    def sample(img):
+        out = 0.0
+        for yi, xi, wt in corners:
+            out = out + img[..., yi, xi] * wt.to(img.dtype)
+        return out
+
+    ev, fl = sample(events), sample(flow)
+    mk = sample(mask.to(torch.float32))
+    Ainv = torch.linalg.inv(A).tolist()
+    vx, vy = fl[:, 0], fl[:, 1]
+    fl = torch.stack([Ainv[0][0] * vx + Ainv[0][1] * vy,
+                      Ainv[1][0] * vx + Ainv[1][1] * vy], dim=1)
+    return ev, fl, mk
+
+
 def _uniform(gen) -> float:
     return float(torch.rand((), generator=gen, dtype=torch.float64))
 
@@ -61,18 +110,25 @@ def build_train_augmentation(augment_names, augment_prob, crop=None,
                              max_drop_rate=0.6, rotation_degrees=(0.0, 0.0)):
     """Compose the configured train transforms into
     ``fn(generator, events, flow, mask)``, ``generator`` a CPU
-    ``torch.Generator``: the random crop first, then in config order
-    "Horizontal" / "Vertical" flips (probability p each), "Polarity" (negate
-    the signed voxels, p > 0 only) and "Drop" (with probability p, drop
-    each entry at a rate uniform in [0, max_drop_rate)). "Rotation" is not
-    ported and raises."""
-    del rotation_degrees  # read by the rotation transform, not ported
+    ``torch.Generator``: "Rotation" first (:func:`rotate_flip`, the angle
+    uniform in ``rotation_degrees``, each mirror with probability p, before
+    the crop as in the reference's composition), then the random crop, then
+    in config order "Horizontal" / "Vertical" flips (probability p each),
+    "Polarity" (negate the signed voxels, p > 0 only) and "Drop" (with
+    probability p, drop each entry at a rate uniform in [0,
+    max_drop_rate))."""
     names = [n.lower() for n in (augment_names or [])]
     probs = list(augment_prob or [])
-    if any(n.startswith("rotation") for n in names):
-        raise NotImplementedError("the Rotation augmentation is not ported")
 
     def apply(gen, events, flow, mask):
+        for k, n in enumerate(names):
+            if n.startswith("rotation"):
+                p = probs[k] if k < len(probs) else 0.5
+                lo, hi = rotation_degrees
+                angle = lo + (hi - lo) * _uniform(gen)
+                h_flip, v_flip = _uniform(gen) < p, _uniform(gen) < p
+                events, flow, mask = rotate_flip(events, flow, mask, angle,
+                                                 h_flip, v_flip)
         if crop is not None:
             th, tw = crop
             h, w = events.shape[-2], events.shape[-1]

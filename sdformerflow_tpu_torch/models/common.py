@@ -1,9 +1,19 @@
 """Configuration dataclasses, mirrors of ``sdformerflow_tpu/models/common.py``.
 
 Plain frozen dataclasses with the JAX package's field names and defaults for
-every field ``training/config.py:build_configs`` fills. The JAX-only
-switches (``fused_qk_attn`` / ``pairlocal_attn``: the port always runs the
-pair-local attention, ``fold_bn``, ``store_v_seq``) are left out.
+every field ``training/config.py:build_configs`` fills, and ``fold_bn``.
+The JAX-only switches left out:
+
+- ``fused_qk_attn``: the port runs K1 at every even window count in eval;
+- ``pairlocal_attn``: the port always runs the pair-local form at an even
+  window count (in train; K1 is its eval form), which is what the switch
+  selects in JAX, and the raw-refold form at an odd one, where JAX's
+  switch has no effect either;
+- ``store_v_seq``: the membrane monitor (ROADMAP section 1 item 9).
+
+One deviation under ``fold_bn``: JAX turns its fused attention off there
+(``spiking_swin.py:323-328``); the port keeps K1, on the folded linears
+with a unit scale and the folded bias as its shift (the same function).
 """
 
 from __future__ import annotations
@@ -26,10 +36,15 @@ class SpikingConfig:
     tau: float = 2.0
     detach_reset: bool = True
     spike_norm: Optional[str] = "BN"
+    # eval-time BN folding (training/bn_folding.py:fold_model): every
+    # foldable BN site is skipped and its partner conv / linear has a bias
+    fold_bn: bool = False
     # the eval-only space-to-depth embed head (weights rearranged by
-    # training/s2d_embed.py); the train-capable s2d_train is not ported and
-    # raises NotImplementedError
+    # training/s2d_embed.py)
     s2d_embed: bool = False
+    # the same re-expression in both modes on reference-shaped parameters
+    # (expanded at each call, BN statistics over the 4 block positions):
+    # the base model's state_dict
     s2d_train: bool = False
 
     def replace(self, **kw) -> "SpikingConfig":

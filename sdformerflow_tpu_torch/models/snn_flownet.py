@@ -122,6 +122,7 @@ class SpikingformerFlowNet(nn.Module):
         if not ms or use_upsample_conv:
             raise NotImplementedError("only the MS transpose-decoder "
                                       "SDformerFlow is ported")
+        self.cfg = cfg
         self.sttmultires_unet = SpikingformerMultiResUNet(
             swin, cfg, num_bins=num_bins, base_num_channels=base_num_channels,
             num_encoders=num_encoders, kernel_size=kernel_size)

@@ -9,6 +9,12 @@ layouts only). A BN followed by a PSN runs as one fused site (K2 forward,
 K2b backward): the BN becomes the per-channel affine ``(a, c)`` of its
 running statistics in eval mode, and of the batch statistics, with their
 gradient, in train mode.
+
+``cfg.fold_bn`` (JAX ``norm_is_folded``, ``spiking_layers.py:44-47``)
+removes every foldable BN site: its norm becomes :class:`FoldedNorm` and
+its partner conv / linear / deconv gains a bias, at the places JAX does;
+the weights come from ``training/bn_folding.py:fold_model``. A fused
+BN -> PSN site then runs K2 with no affine.
 """
 
 from __future__ import annotations
@@ -115,6 +121,42 @@ class TorchBatchNorm(nn.Module):
         return a, self.bias.to(cdt) - mean * a
 
 
+class FoldedNorm(nn.Module):
+    """A BN site that folding removed (its affine is in the partner layer's
+    weight and bias): the identity, with no affine for a fused PSN site.
+    It holds no parameter, so the folded model's state_dict has no entry
+    of the norm."""
+
+    def forward(self, x):
+        return x
+
+    def affine(self, x):
+        return None
+
+
+# norm kinds whose eval affine folds into the adjacent conv / linear
+# (running-statistics BN; only BN is ported)
+_FOLDABLE_NORMS = ("BN", "tdBN", "TDBN")
+
+
+def norm_is_folded(norm, cfg: SpikingConfig) -> bool:
+    """True when ``cfg.fold_bn`` removes this norm site from the graph."""
+    return cfg.fold_bn and norm in _FOLDABLE_NORMS
+
+
+def spiking_norm(channels: int, cfg: SpikingConfig, norm=None):
+    """The norm of a BN site: :class:`SpikingNorm` of ``norm`` (default the
+    config's), or :class:`FoldedNorm` when ``cfg.fold_bn`` folds it."""
+    norm = cfg.spike_norm if norm is None else norm
+    return FoldedNorm() if norm_is_folded(norm, cfg) else SpikingNorm(
+        channels, norm)
+
+
+def folded(norm: nn.Module) -> bool:
+    """Whether a site's partner layer carries a bias for its folded norm."""
+    return isinstance(norm, FoldedNorm)
+
+
 class SpikingNorm(nn.Module):
     """``SpikingNorm(norm='BN')``: one TorchBatchNorm named like flax's
     auto-named child."""
@@ -181,9 +223,9 @@ class SpikingConvEncoderLayer(nn.Module):
                  kernel_size=3, stride=1, padding=None):
         super().__init__()
         require_bn(cfg)
+        self.norm = spiking_norm(out_channels, cfg)
         self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, bias=False)
-        self.norm = SpikingNorm(out_channels)
+                           padding, bias=folded(self.norm))
         self.sn = SpikingNeuron(cfg)
 
     def forward(self, x):
@@ -201,9 +243,9 @@ class MSSpikingConvEncoderLayer(nn.Module):
         self.first_layer = first_layer
         if not first_layer:
             self.sn = SpikingNeuron(cfg)
+        self.norm = spiking_norm(out_channels, cfg)
         self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, bias=False)
-        self.norm = SpikingNorm(out_channels)
+                           padding, bias=folded(self.norm))
 
     def forward(self, x):
         if not self.first_layer:
@@ -222,10 +264,11 @@ class MSSpikingTransposeDecoderLayer(nn.Module):
             raise NotImplementedError("only the x2 transpose decoder is "
                                       "ported")
         self.sn = SpikingNeuron(cfg)
+        self.norm = spiking_norm(out_channels, cfg)
         self.deconv = TorchConvTranspose(
             in_channels, out_channels, kernel_size, stride=2,
-            padding=kernel_size // 2, output_padding=1, bias=False)
-        self.norm = SpikingNorm(out_channels)
+            padding=kernel_size // 2, output_padding=1,
+            bias=folded(self.norm))
 
     def forward(self, x):
         return self.norm(self.deconv(self.sn(x)))
@@ -257,11 +300,13 @@ class MSResBlock(nn.Module):
             raise NotImplementedError(
                 f"connect_function {connect_function!r}: only ADD is ported")
         self.sn1 = SpikingNeuron(cfg)
-        self.conv1 = conv2d(channels, channels, 3, 1, 1, bias=False)
-        self.norm1 = SpikingNorm(channels)
+        self.norm1 = spiking_norm(channels, cfg, "BN")
+        self.conv1 = conv2d(channels, channels, 3, 1, 1,
+                            bias=folded(self.norm1))
         self.sn2 = SpikingNeuron(cfg)
-        self.conv2 = conv2d(channels, channels, 3, 1, 1, bias=False)
-        self.norm2 = SpikingNorm(channels)
+        self.norm2 = spiking_norm(channels, cfg, "BN")
+        self.conv2 = conv2d(channels, channels, 3, 1, 1,
+                            bias=folded(self.norm2))
 
     def forward(self, x):
         y = self.norm1(self.conv1(self.sn1(x)))
@@ -292,12 +337,16 @@ class SpikingPEDLayer(nn.Module):
                  stride=(2, 2), kernel_size=3):
         super().__init__()
         require_bn(cfg)
+        # conv_res has no norm of its own: it keeps no bias when folded
         self.conv_res = Conv2d(in_channels, out_channels, 1, stride=2,
                                padding=0, bias=False)
         self.sn = SpikingNeuron(cfg)
+        # a plain TorchBatchNorm whatever the config: foldable
+        self.norm = FoldedNorm() if cfg.fold_bn else TorchBatchNorm(
+            out_channels)
         self.conv = Conv2d(in_channels, out_channels, kernel_size,
-                           stride=tuple(stride), padding=1, bias=False)
-        self.norm = TorchBatchNorm(out_channels)
+                           stride=tuple(stride), padding=1,
+                           bias=folded(self.norm))
 
     def forward(self, x):
         return self.norm(self.conv(self.sn(x))) + self.conv_res(x)

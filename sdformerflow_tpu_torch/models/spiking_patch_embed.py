@@ -1,10 +1,11 @@
 """The flagship (en4) spiking patch embed, a mirror of
 ``sdformerflow_tpu/models/spiking_patch_embed.py``: ``sfn_regroup`` and
-``MSPEDSpikingPatchEmbedConvSfn`` with its base branch and its
+``MSPEDSpikingPatchEmbedConvSfn`` with its base branch, its
 ``cfg.s2d_embed`` branch (the eval-only space-to-depth re-expression of the
 full-resolution head, ``ops/s2d.py``; its weights come from
-``training/s2d_embed.py``). The train-capable ``cfg.s2d_train`` form is not
-ported.
+``training/s2d_embed.py``) and its ``cfg.s2d_train`` branch (the same
+re-expression in both modes on reference-shaped parameters, JAX
+``spiking_patch_embed.py:189-341,364-378``).
 """
 
 from __future__ import annotations
@@ -13,12 +14,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.s2d import space_to_depth
+from ..ops.s2d import s2d_kernel_s1, s2d_kernel_s2, space_to_depth, tile4
 from .common import SpikingConfig
-from .spiking_layers import (Conv2d, MSSpikingConvEncoderLayer,
-                             SpikingConvEncoderLayer, SpikingNorm,
+from .spiking_layers import (Conv2d, FoldedNorm, MSSpikingConvEncoderLayer,
+                             SpikingConvEncoderLayer, SpikingNeuron,
                              SpikingPEDLayer, SpikingResidualStack,
-                             conv_output_size, require_bn)
+                             TorchBatchNorm, _channels_last, conv_output_size,
+                             folded, norm_is_folded, require_bn, spiking_norm)
 
 
 def sfn_regroup(x: torch.Tensor, num_steps: int) -> torch.Tensor:
@@ -42,13 +44,116 @@ class _S2DExitConvLayer(nn.Module):
     def __init__(self, in_channels, out_channels, cfg: SpikingConfig):
         super().__init__()
         require_bn(cfg)
+        self.norm = spiking_norm(out_channels, cfg)
         self.conv = Conv2d(in_channels, out_channels, 2, stride=1,
-                           padding=0, bias=False)
-        self.norm = SpikingNorm(out_channels)
+                           padding=0, bias=folded(self.norm))
 
     def forward(self, x):
         # channels-last [..., H, W, C]: one row on top, one column on the left
         return self.norm(self.conv(F.pad(x, (0, 0, 1, 0, 1, 0))))
+
+
+class _S2DConv(Conv2d):
+    """A conv with the REFERENCE-SHAPED kernel ``[co, ci, 3, 3]`` (and
+    bias ``[co]``) expanded to block space at each call (``cfg.s2d_train``):
+    ``kind="s1"`` the :func:`s2d_kernel_s1` image (stride-1 SAME in block
+    space, block-space output, bias tiled by 4), ``kind="s2"`` the
+    :func:`s2d_kernel_s2` image (2x2 stride-1 conv after (1, 0) padding,
+    the normal half-resolution output). The expansion is a copy of slices,
+    so autograd sums each reference tap's gradient over its block
+    placements: the reference kernel's gradient. Names and shapes are
+    ``conv2d``'s, so the state_dict is the base model's."""
+
+    def __init__(self, in_channels, out_channels, kind: str, bias=False):
+        if kind not in ("s1", "s2"):
+            raise ValueError(f"unknown s2d conv kind {kind!r}")
+        super().__init__(in_channels, out_channels, 3, padding=1, bias=bias)
+        self.kind = kind
+
+    def forward(self, x):
+        if self.kind == "s1":
+            w = s2d_kernel_s1(self.weight)
+            b = None if self.bias is None else tile4(self.bias)
+            return _channels_last(lambda z: F.conv2d(z, w, b, padding=1), x)
+        w = s2d_kernel_s2(self.weight)
+        return _channels_last(lambda z: F.conv2d(z, w, self.bias),
+                              F.pad(x, (0, 0, 1, 0, 1, 0)))
+
+
+class _S2DBlockBatchNorm(TorchBatchNorm):
+    """TorchBatchNorm over a block-space tensor ``[..., 4C]`` with
+    reference-shaped per-channel parameters and statistics ``[C]``: in
+    train mode channel c's moments are reduced over all 4 block positions
+    together (the population the reference's BN reduces at full
+    resolution; the running statistics' ``n = numel / C``), in eval mode
+    the running statistics act on every block."""
+
+    @staticmethod
+    def _blocks(x):
+        return x.reshape(*x.shape[:-1], 4, x.shape[-1] // 4)
+
+    def forward(self, x):
+        return super().forward(self._blocks(x)).reshape(x.shape)
+
+    def eval_affine(self):
+        return tuple(map(tile4, super().eval_affine()))
+
+    def affine(self, x):
+        """(a, c) over the block channels: :func:`tile4` of the per-channel
+        affine, so autograd sums dscale and dshift over the 4 blocks."""
+        if not self.training:
+            return self.eval_affine()
+        return tuple(map(tile4, super().affine(self._blocks(x))))
+
+
+class _S2DSpikingNorm(nn.Module):
+    """The ``SpikingNorm`` twin of a block-space site (BN only): one
+    :class:`_S2DBlockBatchNorm` named like flax's auto-named child."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.BatchNorm_0 = _S2DBlockBatchNorm(channels)
+
+    def forward(self, x):
+        return self.BatchNorm_0(x)
+
+    def affine(self, x):
+        return self.BatchNorm_0.affine(x)
+
+
+class _S2DTrainHeadLayer(nn.Module):
+    """The block-space SEW head (conv -> BN -> spike, the BN and the spike
+    one fused K2 / K2b site at 4 x 48 channels in the en4) with the base
+    head's reference-shaped parameters (``cfg.s2d_train``)."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig):
+        super().__init__()
+        require_bn(cfg)
+        self.norm = (FoldedNorm() if norm_is_folded(cfg.spike_norm, cfg)
+                     else _S2DSpikingNorm(out_channels))
+        self.conv = _S2DConv(in_channels, out_channels, "s1",
+                             bias=folded(self.norm))
+        self.sn = SpikingNeuron(cfg)
+
+    def forward(self, x):
+        x = self.conv(x)
+        return self.sn(x, affine=self.norm.affine(x))
+
+
+class _S2DTrainExitLayer(nn.Module):
+    """The block-space exit of the stride-2 MS conv with the base layer's
+    reference-shaped parameters (``cfg.s2d_train``); its output is in the
+    normal layout, so its BN is the plain per-channel one."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig):
+        super().__init__()
+        require_bn(cfg)
+        self.norm = spiking_norm(out_channels, cfg)
+        self.conv = _S2DConv(in_channels, out_channels, "s2",
+                             bias=folded(self.norm))
+
+    def forward(self, x):
+        return self.norm(self.conv(x))
 
 
 class MSPEDSpikingPatchEmbedConvSfn(nn.Module):
@@ -57,20 +162,27 @@ class MSPEDSpikingPatchEmbedConvSfn(nn.Module):
 
     With ``cfg.s2d_embed`` the head and the MS conv run in 2x2 block space
     (head ``[4 * 48, 4 * ci, 3, 3]``, exit :class:`_S2DExitConvLayer`): eval
-    only, on BN, with weights rearranged by ``training/s2d_embed.py``."""
+    only, on BN, with weights rearranged by ``training/s2d_embed.py``. With
+    ``cfg.s2d_train`` they run in block space in both modes on the base
+    model's parameters (:class:`_S2DTrainHeadLayer`,
+    :class:`_S2DTrainExitLayer`): the same state_dict, so a base
+    checkpoint loads unchanged; it excludes ``cfg.s2d_embed``."""
 
     def __init__(self, img_size, patch_size=(1, 1, 2, 2), in_chans=10,
                  embed_dim=96, cfg: SpikingConfig = SpikingConfig(),
                  num_res=2):
         super().__init__()
-        if cfg.s2d_train:
-            raise NotImplementedError("cfg.s2d_train (the train-capable s2d "
-                                      "embed) is not ported")
+        if cfg.s2d_train and cfg.s2d_embed:
+            raise ValueError("cfg.s2d_train and cfg.s2d_embed are mutually "
+                             "exclusive re-expressions")
         self.in_chans = in_chans
         self.num_steps = cfg.num_steps
-        self.s2d = cfg.s2d_embed
+        self.s2d, self.s2d_train = cfg.s2d_embed, cfg.s2d_train
         num_ch = in_chans * 2 // cfg.num_steps
-        if self.s2d:
+        if self.s2d_train:
+            self.head = _S2DTrainHeadLayer(num_ch, embed_dim // 2, cfg)
+            self.conv = _S2DTrainExitLayer(embed_dim // 2, embed_dim, cfg)
+        elif self.s2d:
             self.head = SpikingConvEncoderLayer(4 * num_ch,
                                                 4 * (embed_dim // 2), cfg,
                                                 3, 1, 1)
@@ -92,10 +204,10 @@ class MSPEDSpikingPatchEmbedConvSfn(nn.Module):
 
     def forward(self, x):
         x = sfn_regroup(x[:, :self.in_chans], self.num_steps)
-        if self.s2d:
-            if self.training:
-                raise ValueError("cfg.s2d_embed is inference-only (train-mode"
-                                 " BN statistics would be per block-channel)")
+        if self.s2d and self.training:
+            raise ValueError("cfg.s2d_embed is inference-only (train-mode"
+                             " BN statistics would be per block-channel)")
+        if self.s2d or self.s2d_train:
             x = space_to_depth(x)
         x = self.conv(self.head(x))
         return self.proj(self.residual_encoding(x))

@@ -14,6 +14,13 @@ row-major refolds in the window partition and in the raw-refold attention,
 the shift mask ignored by the QK attention, drop-path on the attention
 branch only.
 
+Under ``cfg.fold_bn`` the q/k branches, the MLP, the patch merging and
+``proj_bn`` lose their BN and their linears gain a bias, as in JAX. JAX
+also turns its fused attention off there (``spiking_swin.py:323-328``),
+because its kernel applies the BN affine itself; the port keeps K1, whose
+affine then is the unit scale with the folded bias as the shift
+(:meth:`SpikingQKWindowAttention3D.kernel_params`): the same function.
+
 A torch module owns its parameters at construction, so each block is built
 for the stage resolution the config implies (the clamped window decides the
 positional encoding's shape, as the flax module decided it from its input);
@@ -29,17 +36,19 @@ import torch.nn.functional as F
 from ..ops import windows as W
 from ..ops.hopper_attn import QKAttnParams, fused_qk_attention
 from .common import SpikingConfig
-from .spiking_layers import SpikingNeuron, SpikingNorm, drop_path, require_bn
+from .spiking_layers import (SpikingNeuron, drop_path, folded, require_bn,
+                             spiking_norm)
 
 
 class _QKBranch(nn.Module):
-    """linear (no bias) -> BN -> PSN, with the optional pre-spike positional
-    encoding of k stored in the reference layout (1, nh, N, hd)."""
+    """linear (no bias; with the folded BN's bias under ``cfg.fold_bn``) ->
+    BN -> PSN, with the optional pre-spike positional encoding of k stored
+    in the reference layout (1, nh, N, hd)."""
 
     def __init__(self, dim, cfg: SpikingConfig, pe_shape=None):
         super().__init__()
-        self.linear = nn.Linear(dim, dim, bias=False)
-        self.bn = SpikingNorm(dim)
+        self.bn = spiking_norm(dim, cfg)
+        self.linear = nn.Linear(dim, dim, bias=folded(self.bn))
         if pe_shape is not None:
             self.positional_encoding = nn.Parameter(torch.zeros(pe_shape))
         self.sn = SpikingNeuron(cfg)
@@ -82,12 +91,21 @@ class SpikingQKWindowAttention3D(nn.Module):
         # one; the eval forward never fires it (as in the fused JAX path)
         self.attn_sn = SpikingNeuron(acfg)
         self.proj = nn.Linear(dim, dim, bias=True)
-        self.proj_bn = SpikingNorm(dim)
+        self.proj_bn = spiking_norm(dim, acfg)
 
     def kernel_params(self) -> QKAttnParams:
-        aq, cq = self.q.bn.eval_affine()
-        ak, ck = self.k.bn.eval_affine()
-        ap, cp = self.proj_bn.eval_affine()
+        """K1's parameters: each BN site's eval affine or, where folding
+        moved it into the linear, the unit scale with ``shift`` (the q / k
+        linear's bias; 0 after ``proj``, whose own bias K1 adds)."""
+        def affine(norm, shift):
+            if not folded(norm):
+                return norm.eval_affine()
+            c = shift.to(torch.promote_types(shift.dtype, torch.float32))
+            return torch.ones_like(c), c
+
+        aq, cq = affine(self.q.bn, self.q.linear.bias)
+        ak, ck = affine(self.k.bn, self.k.linear.bias)
+        ap, cp = affine(self.proj_bn, torch.zeros_like(self.proj.bias))
         return QKAttnParams(
             w_in=self.proj_sn.weight, b_in=self.proj_sn.bias,
             wq=self.q.linear.weight.t(), aq=aq, cq=cq,
@@ -148,11 +166,11 @@ class SpikingMlp(nn.Module):
         super().__init__()
         require_bn(cfg)
         self.sn1 = SpikingNeuron(cfg)
-        self.fc1 = nn.Linear(dim, hidden_dim, bias=False)
-        self.bn1 = SpikingNorm(hidden_dim)
+        self.bn1 = spiking_norm(hidden_dim, cfg)
+        self.fc1 = nn.Linear(dim, hidden_dim, bias=folded(self.bn1))
         self.sn2 = SpikingNeuron(cfg)
-        self.fc2 = nn.Linear(hidden_dim, dim, bias=False)
-        self.bn2 = SpikingNorm(dim)
+        self.bn2 = spiking_norm(dim, cfg)
+        self.fc2 = nn.Linear(hidden_dim, dim, bias=folded(self.bn2))
 
     def forward(self, x):
         x = self.fc1(self.sn1(x))
@@ -213,8 +231,8 @@ class SpikingPatchMerging(nn.Module):
         super().__init__()
         require_bn(cfg)
         self.sn = SpikingNeuron(cfg)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
-        self.norm = SpikingNorm(2 * dim)
+        self.norm = spiking_norm(2 * dim, cfg)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=folded(self.norm))
 
     def forward(self, x):
         D, B, H, Wd, C = x.shape

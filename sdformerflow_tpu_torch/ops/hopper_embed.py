@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernel_build import load_cuda_library
+from ..models.spiking_layers import FoldedNorm
 from ..models.spiking_patch_embed import sfn_regroup
 from .hopper_psn import launch_k2
 from .neurons import psn_neuron
@@ -225,7 +226,9 @@ psn_spike_cs.launches = 0
 def _conv_site(x, conv, norm, *, stride=1):
     """K4 at one conv (+ eval BN) site of ``x`` [T * B, Cin, H, W]: the
     affine of the norm's running statistics from its (cast) parameters, or
-    the conv's bias."""
+    the conv's bias (no norm, or one that BN folding removed)."""
+    if isinstance(norm, FoldedNorm):
+        norm = None
     scale, shift = norm.eval_affine() if norm is not None else (None, None)
     if norm is None and conv.bias is not None:
         shift = conv.bias

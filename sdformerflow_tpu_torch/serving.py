@@ -18,6 +18,9 @@ padded to power-of-two buckets (:func:`next_bucket`).
 
 ``s2d=True`` serves the exact space-to-depth re-expression of the embed
 head (``training/s2d_embed.py``), as the JAX server's option does.
+``model=`` serves a model built elsewhere, e.g. one that
+``training/bn_folding.py:fold_model`` folded (JAX passes such a model in
+its ``state``).
 
 The ANN family (STTFlowNet, MultiResUNet) is served from voxel requests of
 its chunk's bins (``data.num_frames * data.num_chunks``, 20 for the DSEC
@@ -74,14 +77,25 @@ class FlowServer:
     s2d: serve the space-to-depth re-expression of the embed head
         (``training/s2d_embed.py``, exact; the MS_PED embed with BN only),
         applied to the weights before the bf16 cast.
+    model: a model of ``config``'s geometry, weights loaded (e.g. folded
+        by ``training.bn_folding.fold_model``), served in place of the one
+        the other arguments would build; cast on a copy for bf16.
     """
 
     def __init__(self, config: dict, state_dict: Optional[dict] = None, *,
                  ckpt: Optional[str] = None, device="cuda", bf16: bool = True,
-                 max_pending: int = 8, s2d: bool = False):
+                 max_pending: int = 8, s2d: bool = False,
+                 model: Optional[torch.nn.Module] = None):
         self.device = torch.device(device)
-        model = build_inference_state(config, ckpt, s2d, device=self.device,
-                                      state_dict=state_dict)
+        if model is None:
+            model = build_inference_state(config, ckpt, s2d,
+                                          device=self.device,
+                                          state_dict=state_dict)
+        elif state_dict is not None or ckpt is not None or s2d:
+            raise ValueError("give model, or state_dict / ckpt / s2d to "
+                             "build one, not both")
+        else:
+            model = model.to(self.device).eval()
         self._input_bins = chunk_bins(config)
         self._num_bins = config["data"].get("num_frames", 10)
         self._resolution = tuple(config["loader"].get("resolution",

@@ -1,15 +1,20 @@
-"""Optimizer and learning-rate schedule, a mirror of
-``sdformerflow_tpu/training/optim.py`` for the configuration the en4 train
-config uses: AdamW, the multistep schedule, global-norm clipping with
-non-finite skipping (``clip_and_skip_by_global_norm``), one update per
-batch (``num_acc == 1``).
+"""Optimizers and learning-rate schedules, a mirror of
+``sdformerflow_tpu/training/optim.py`` (``build_optimizer``): AdamW, Adam
+and SGD with momentum, the multistep and the OneCycle schedules counted in
+optimizer updates, global-norm clipping with non-finite skipping
+(``clip_and_skip_by_global_norm``) and gradient accumulation over
+``num_acc`` micro-batches (``optax.MultiSteps``).
 
-:class:`AdamW` keeps optax's semantics and runs entirely on the device: the
-global norm, the clip, the skip decision, the schedule and the update are
-tensor operations, so a step never waits for the device (the trainer
-fetches losses in blocks, ``sync_every``). Its moments live in two flat
-vectors over the trained parameters, so an update is a few dozen launches
-whatever the number of parameter tensors.
+Every optimizer runs entirely on the device: the global norm, the clip,
+the skip decision, the schedule and the update are tensor operations, so a
+step never waits for the device (the trainer fetches losses in blocks,
+``sync_every``). Its state lives in flat vectors over the trained
+parameters, so an update is a few dozen launches whatever the number of
+parameter tensors.
+
+One deviation from JAX: an unknown scheduler name raises, where JAX falls
+back to a constant learning rate (``optim.py:190-191``); "constant" (or
+None) names the constant schedule.
 """
 
 from __future__ import annotations
@@ -37,69 +42,192 @@ def multistep_schedule(lr: float, milestones: Sequence[int],
     return schedule
 
 
-class AdamW:
-    """optax ``clip_and_skip_by_global_norm(adamw(schedule, weight_decay))``
-    over named parameters.
+def onecycle_schedule(lr: float, n_epochs: int, updates_per_epoch: int,
+                      pct_start: float = 0.01, div_factor: float = 25.0,
+                      final_div_factor: float = 1e4, extra_steps: int = 100):
+    """torch's OneCycleLR as the reference builds it
+    (``total_steps=n_epochs + 100``, ``pct_start=0.01``, linear) and steps
+    it, once per EPOCH: a staircase, constant within an epoch, that covers
+    only the first ``n_epochs / (n_epochs + 100)`` of the cycle. Warm-up
+    from ``lr / div_factor`` to ``lr`` over ``pct_start * total - 1``
+    epochs, then a linear decay toward ``lr / div_factor /
+    final_div_factor`` at ``total - 1``; ``fn(count)`` as
+    :func:`multistep_schedule`'s."""
+    total = float(n_epochs + extra_steps)
+    initial = lr / div_factor
+    min_lr = initial / final_div_factor
+    end1 = pct_start * total - 1.0
+    end2 = total - 1.0
 
-    Per :meth:`step`: ``g_norm = ||grads||_2`` over every trained leaf; if
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        e = torch.div(count, updates_per_epoch,
+                      rounding_mode="floor").to(torch.float64)
+        warm = initial + (lr - initial) * torch.clamp(e, max=end1) / end1
+        pct = (torch.clamp(e, max=end2) - end1) / (end2 - end1)
+        ann = lr + (min_lr - lr) * pct
+        return torch.where(e <= end1, warm, ann)
+
+    return schedule
+
+
+class FlatOptimizer:
+    """``clip_and_skip_by_global_norm(inner)`` over named parameters,
+    wrapped in ``optax.MultiSteps(every_k_schedule=num_acc)`` when
+    ``num_acc > 1``; :class:`AdamW`, :class:`Adam` and :class:`SGD` give
+    the inner update.
+
+    Per update: ``g_norm = ||grads||_2`` over every trained leaf; if
     ``max_norm`` is set and ``g_norm >= max_norm`` each gradient becomes
-    ``g / g_norm * max_norm``; AdamW then updates ``m``, ``v`` and the
-    parameters (``p += -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``, lr
-    from ``schedule(count)``, bias corrections at ``count + 1``). When
-    ``g_norm`` is not finite nothing changes - parameters, moments and
-    ``count`` (the schedule's count too) - and ``notfinite_count`` grows.
+    ``g / g_norm * max_norm``; the inner update then moves its state and
+    the parameters at ``lr = schedule(count)``. When ``g_norm`` is not
+    finite nothing changes - parameters, inner state and ``count`` (the
+    schedule's count too) - and ``notfinite_count`` grows.
+
+    With ``num_acc > 1`` each :meth:`step` folds the micro-batch's gradient
+    into the running mean ``acc += (g - acc) / (mini_step + 1)`` and every
+    ``num_acc``-th one makes the update above from that mean, then resets
+    it as optax does, ``acc *= 0``: a non-finite micro-gradient makes the
+    mean non-finite, so that update is skipped, and since ``0 * nan`` is
+    nan every later one as well (JAX's behaviour, kept). ``mini_step`` and
+    the partial mean carry over epoch ends, as in JAX; ``gradient_step``
+    counts the updates made or skipped.
 
     The trained parameters are those with a gradient at the first step (a
     parameter whose output never reaches the loss, the attention-telemetry
     neuron ``attn_sn``, has none and is never updated nor decayed, as in
-    the reference and the JAX decay mask); every later step must give the
-    same set.
+    the reference and the JAX decay mask; JAX's zero gradients leave Adam
+    and SGD at rest there too); every later step must give the same set.
     """
 
-    def __init__(self, named_parameters, *, schedule, weight_decay=0.01,
-                 b1=0.9, b2=0.999, eps=1e-8, max_norm: Optional[float] = None):
+    kind = ""
+    state_names: tuple = ()
+
+    def __init__(self, named_parameters, *, schedule,
+                 max_norm: Optional[float] = None, num_acc: int = 1):
         self.named = dict(named_parameters)
         self.schedule = schedule
-        self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1,
-                                                         b2, eps)
-        self.max_norm = max_norm
+        self.max_norm, self.num_acc = max_norm, num_acc
         dev = next(iter(self.named.values())).device
         self.count = torch.zeros((), dtype=torch.int64, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.mini_step = self.gradient_step = 0
         self.names: Optional[list] = None   # the trained set, at step 1
-        self.m = self.v = None
+        self.acc = None
+        for name in self.state_names:
+            setattr(self, name, None)
 
     def _trained(self):
         names = [n for n, p in self.named.items() if p.grad is not None]
         if self.names is None:
             if not names:
-                raise ValueError("AdamW.step: no parameter has a gradient")
+                raise ValueError(f"{self.kind}.step: no parameter has a "
+                                 "gradient")
             dtypes = {self.named[n].dtype for n in names}
             if len(dtypes) != 1:
-                raise TypeError(f"AdamW: parameters of one dtype, got "
+                raise TypeError(f"{self.kind}: parameters of one dtype, got "
                                 f"{dtypes}")
             self.names = names
-            numel = sum(self.named[n].numel() for n in names)
-            p0 = self.named[names[0]]
-            self.m = torch.zeros(numel, dtype=p0.dtype, device=p0.device)
-            self.v = torch.zeros_like(self.m)
         elif names != self.names:
-            raise ValueError("AdamW.step: the set of parameters with a "
-                             "gradient changed since the first step")
-        return [self.named[n] for n in self.names]
+            raise ValueError(f"{self.kind}.step: the set of parameters with "
+                             "a gradient changed since the first step")
+        params = [self.named[n] for n in self.names]
+        numel = sum(p.numel() for p in params)
+        for name in self.state_names + (("acc",) if self.num_acc > 1
+                                        else ()):
+            if getattr(self, name) is None:
+                setattr(self, name, torch.zeros(
+                    numel, dtype=params[0].dtype, device=params[0].device))
+        return params
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """One update from the parameters' ``.grad``; returns the global
-        gradient norm before clipping (a device scalar, not fetched)."""
+        """One micro-step from the parameters' ``.grad``: the update at
+        every ``num_acc``-th call; returns the global norm of this call's
+        gradient before clipping (a device scalar, not fetched)."""
         params = self._trained()
         g = torch.cat([p.grad.reshape(-1) for p in params])
         g_norm = torch.linalg.vector_norm(g)
+        if self.num_acc == 1:
+            self._update(params, g, g_norm)
+        else:
+            self.acc.add_((g - self.acc) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.num_acc:
+                return g_norm
+            self._update(params, self.acc,
+                         torch.linalg.vector_norm(self.acc))
+            self.acc.mul_(0)
+            self.mini_step = 0
+        self.gradient_step += 1
+        return g_norm
+
+    def _update(self, params, g, g_norm):
+        """Clip, skip and the inner update from the gradient ``g``."""
         ok = torch.isfinite(g_norm)
         if self.max_norm is not None:
             g = torch.where(g_norm < self.max_norm, g,
                             g / g_norm * self.max_norm)
         g = torch.where(ok, g, 0.0)   # a skipped step reads no NaN
+        p = torch.cat([q.reshape(-1) for q in params])
+        u = self._direction(g, p, ok)
+        step = torch.where(ok, -self.schedule(self.count), 0.0).to(g.dtype)
+        torch._foreach_add_(params, [d.view_as(q) for d, q in zip(
+            (u * step).split([q.numel() for q in params]), params)])
+        self.count += ok.to(self.count.dtype)
+        self.notfinite_count += (~ok).to(self.count.dtype)
+
+    def _direction(self, g, p, ok):
+        """Move the inner state (left as it is where ``ok`` is False) and
+        return the update direction ``u``: the parameters move by
+        ``-lr * u``."""
+        raise NotImplementedError
+
+    def zero_grad(self):
+        for p in self.named.values():
+            p.grad = None
+
+    def state_dict(self) -> dict:
+        return {"kind": self.kind, "count": self.count,
+                "notfinite_count": self.notfinite_count,
+                "names": self.names, "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step, "acc": self.acc,
+                **{n: getattr(self, n) for n in self.state_names}}
+
+    def load_state_dict(self, state: dict):
+        if state.get("kind") != self.kind:
+            raise ValueError(f"{self.kind}.load_state_dict: the state is "
+                             f"{state.get('kind')!r}'s")
+        dev = self.count.device
+
+        def to_dev(t):
+            return None if t is None else t.to(dev)
+
+        self.count = state["count"].to(dev)
+        self.notfinite_count = state["notfinite_count"].to(dev)
+        self.names = state["names"]
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+        self.acc = to_dev(state["acc"])
+        for name in self.state_names:
+            setattr(self, name, to_dev(state[name]))
+
+
+class AdamW(FlatOptimizer):
+    """optax ``adamw(schedule, weight_decay)``: ``m``, ``v`` moments with
+    bias corrections at ``count + 1``; ``u = m_hat / (sqrt(v_hat) + eps) +
+    wd * p``."""
+
+    kind = "AdamW"
+    state_names = ("m", "v")
+
+    def __init__(self, named_parameters, *, schedule, weight_decay=0.01,
+                 b1=0.9, b2=0.999, eps=1e-8, max_norm=None, num_acc=1):
+        super().__init__(named_parameters, schedule=schedule,
+                         max_norm=max_norm, num_acc=num_acc)
+        self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1,
+                                                         b2, eps)
+
+    def _direction(self, g, p, ok):
         b1, b2 = self.b1, self.b2
         one = torch.ones((), dtype=g.dtype, device=g.device)
         keep1 = torch.where(ok, one * b1, one)   # the moments stay on a skip
@@ -109,31 +237,34 @@ class AdamW:
         count_inc = self.count + 1
         bc1 = (1 - b1 ** count_inc.to(torch.float64)).to(g.dtype)
         bc2 = (1 - b2 ** count_inc.to(torch.float64)).to(g.dtype)
-        p = torch.cat([q.reshape(-1) for q in params])
         u = (self.m / bc1) / (torch.sqrt(self.v / bc2) + self.eps)
-        u = u + self.weight_decay * p
-        step = torch.where(ok, -self.schedule(self.count), 0.0).to(g.dtype)
-        torch._foreach_add_(params, [d.view_as(q) for d, q in zip(
-            (u * step).split([q.numel() for q in params]), params)])
-        self.count += ok.to(self.count.dtype)
-        self.notfinite_count += (~ok).to(self.count.dtype)
-        return g_norm
+        return u + self.weight_decay * p if self.weight_decay else u
 
-    def zero_grad(self):
-        for p in self.named.values():
-            p.grad = None
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "notfinite_count": self.notfinite_count,
-                "names": self.names, "m": self.m, "v": self.v}
+class Adam(AdamW):
+    """optax ``adam(schedule)``: :class:`AdamW` built with no weight
+    decay."""
 
-    def load_state_dict(self, state: dict):
-        dev = self.count.device
-        self.count = state["count"].to(dev)
-        self.notfinite_count = state["notfinite_count"].to(dev)
-        self.names = state["names"]
-        self.m = None if state["m"] is None else state["m"].to(dev)
-        self.v = None if state["v"] is None else state["v"].to(dev)
+    kind = "Adam"
+
+
+class SGD(FlatOptimizer):
+    """optax ``sgd(schedule, momentum)``: the trace ``t = g + momentum *
+    t``, ``u = t``."""
+
+    kind = "SGD"
+    state_names = ("trace",)
+
+    def __init__(self, named_parameters, *, schedule, momentum=0.9,
+                 max_norm=None, num_acc=1):
+        super().__init__(named_parameters, schedule=schedule,
+                         max_norm=max_norm, num_acc=num_acc)
+        self.momentum = momentum
+
+    def _direction(self, g, p, ok):
+        self.trace.copy_(torch.where(ok, g + self.momentum * self.trace,
+                                     self.trace))
+        return self.trace
 
 
 def build_optimizer(named_parameters, *, name: str = "AdamW",
@@ -143,26 +274,49 @@ def build_optimizer(named_parameters, *, name: str = "AdamW",
                                                  120),
                     steps_per_epoch: int = 1000, n_epochs: int = 60,
                     gamma: float = 0.5, clip_grad: Optional[float] = 100.0,
-                    num_acc: int = 1) -> AdamW:
-    """:class:`AdamW` from the config's optimizer section. Only AdamW with
-    the multistep schedule (or a constant lr) and ``num_acc == 1`` is
-    ported; anything else raises NotImplementedError."""
-    del n_epochs  # read by the one-cycle schedule, not ported
-    if name.lower() != "adamw":
-        raise NotImplementedError(f"optimizer {name!r}: only AdamW is "
-                                  "ported")
-    if num_acc != 1:
-        raise NotImplementedError("num_acc > 1 (gradient accumulation) is "
-                                  "not ported")
-    updates_per_epoch = max(steps_per_epoch, 1)
+                    num_acc: int = 1) -> FlatOptimizer:
+    """The optimizer of the config's optimizer section: ``name`` AdamW,
+    Adam or SGD (momentum 0.9), ``scheduler`` "multistep", "one_cycle" /
+    "cycle" or "constant" (None), clipped at ``clip_grad``, one update per
+    ``num_acc`` micro-batches. An unknown name or scheduler raises."""
+    # Schedule counts advance per OPTIMIZER update (optax.MultiSteps holds
+    # the inner state frozen between emissions), while steps_per_epoch
+    # counts micro-batches; the reference emits ceil(batches/num_acc)
+    # optimizer steps per epoch (update every num_acc batches, flushing the
+    # remainder at epoch end — train_flow_parallel_supervised_SNN.py:
+    # 327-336). optax.MultiSteps carries a partial accumulation across the
+    # epoch boundary instead of flushing it, so when steps_per_epoch is not
+    # divisible by num_acc the update COUNT drifts from the reference by
+    # <1 update/epoch; the schedule mapping below is exact whenever it is
+    # divisible (and all reference configs train full epochs).
+    if num_acc < 1:
+        raise ValueError(f"num_acc must be >= 1, got {num_acc}")
+    updates_per_epoch = max(-(-steps_per_epoch // num_acc), 1)
     if scheduler == "multistep":
         schedule = multistep_schedule(lr, milestones, updates_per_epoch,
                                       gamma)
+    elif scheduler in ("one_cycle", "cycle"):
+        schedule = onecycle_schedule(lr, n_epochs, updates_per_epoch)
     elif scheduler in ("constant", None):
         schedule = multistep_schedule(lr, (), updates_per_epoch, gamma)
     else:
         raise NotImplementedError(f"scheduler {scheduler!r} is not ported")
     if clip_grad is not None and not math.isfinite(clip_grad):
         raise ValueError(f"clip_grad must be finite, got {clip_grad}")
-    return AdamW(named_parameters, schedule=schedule,
-                 weight_decay=weight_decay, max_norm=clip_grad)
+    # Deliberate deviation: the reference applies clip_grad_norm_ after
+    # EVERY micro-batch backward, re-clipping the partially accumulated
+    # gradient num_acc times (train_flow_parallel_supervised_SNN.py:
+    # 314-336); here the clip runs once on the accumulated mean.
+    # Identical whenever the global norm stays under max_norm (shipped
+    # configs clip at 100, far above observed norms ~O(1)); under
+    # active clipping the reference's result depends on accumulation
+    # order and cannot be expressed as a function of the mean gradient.
+    kw = dict(schedule=schedule, max_norm=clip_grad, num_acc=num_acc)
+    kind = name.lower()
+    if kind == "adamw":
+        return AdamW(named_parameters, weight_decay=weight_decay, **kw)
+    if kind == "adam":
+        return Adam(named_parameters, weight_decay=0.0, **kw)
+    if kind == "sgd":
+        return SGD(named_parameters, **kw)
+    raise ValueError(f"unknown optimizer {name!r}")

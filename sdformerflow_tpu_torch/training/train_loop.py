@@ -1,11 +1,16 @@
 """Config-driven supervised training loop on one card, a mirror of
 ``sdformerflow_tpu/training/train_loop.py`` (``train``, ``validate``):
 
-- the model from the registry in train mode, AdamW + multistep schedule +
-  global-norm clip with non-finite skipping (``optim.py``);
-- per batch: host batcher -> device -> augmentation (random crop, flips)
-  -> train step (forward, backward, update; raw events voxelized on the
-  device);
+- the model from the registry in train mode, the configured optimizer
+  (AdamW, Adam or SGD), schedule (multistep or OneCycle, counted in
+  updates) and ``num_acc``, with global-norm clip and non-finite skipping
+  (``optim.py``);
+- per batch: host batcher in a background thread -> pinned memory ->
+  device on a side stream (``parallel/mesh.py:prefetch_to_device``, as
+  JAX's loop, ``train_loop.py:307``) -> augmentation (rotation, random
+  crop, flips) -> train step (forward, backward, update; raw events
+  voxelized on the device); ``metrics.jsonl`` gets each epoch's median
+  wait of a step for its batch (``batch_wait_ms_p50``);
 - losses stay device scalars and are fetched ``loader.sync_every`` steps
   at a time, so the host runs ahead of the card; a NaN loss raises at the
   fetch (the optimizer already skipped its update);
@@ -41,6 +46,7 @@ from ..data.dsec import batch_iterator
 from ..losses import flow_loss_supervised
 from ..models.registry import get_model
 from ..ops.normalization import encode_input
+from ..parallel.mesh import prefetch_to_device
 from ..utils.logging import RunLogger, count_parameters
 from .checkpoints import restore_checkpoint, save_checkpoint
 from .config import build_configs, chunk_bins
@@ -192,10 +198,14 @@ def _train_epochs(config, model, optimizer, train_dataset, valid_dataset, *,
             epoch_loss += float(vals.sum()) * batch_size
             pending.clear()
 
-        for batch in batch_iterator(train_dataset, batch_size, shuffle=True,
-                                    seed=seed + epoch,
-                                    workers=loader.get("n_workers", 0)):
-            batch = _to_device(batch, device)
+        batches = prefetch_to_device(
+            batch_iterator(train_dataset, batch_size, shuffle=True,
+                           seed=seed + epoch,
+                           workers=loader.get("n_workers", 0)), device)
+        waits = []      # host seconds each step waited for its batch
+        t_wait = time.perf_counter()
+        for batch in batches:
+            waits.append(time.perf_counter() - t_wait)
             if "events" not in batch:
                 chunk, label, mask = augment(aug_gen, batch["chunk"],
                                              batch["label"], batch["mask"])
@@ -209,6 +219,8 @@ def _train_epochs(config, model, optimizer, train_dataset, valid_dataset, *,
                 break
             if preempt_sig:
                 break
+            t_wait = time.perf_counter()
+        batches.close()
         drain()
 
         step = int(optimizer.count)
@@ -222,6 +234,9 @@ def _train_epochs(config, model, optimizer, train_dataset, valid_dataset, *,
         logger.log_metric("train_loss", epoch_loss, epoch)
         logger.log_metric("epoch_time_s", time.time() - t0, epoch)
         logger.log_metric("skipped_updates", int(optimizer.notfinite_count),
+                          epoch)
+        logger.log_metric("batch_wait_ms_p50",
+                          float(np.median(waits)) * 1e3 if waits else 0.0,
                           epoch)
         if epoch_loss < best_loss:
             save_checkpoint(f"{run_dir}/ckpt", model, optimizer, epoch, step,

@@ -95,8 +95,9 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     """Return ``train_step(batch) -> {"loss", "grad_norm"}`` (device
     scalars): forward in train mode (batch-statistics BN, running statistics
     updated, drop-path from ``generator``), the supervised flow loss over
-    every prediction, backward, and one ``optimizer`` update
-    (``training.optim.AdamW``: clip, skip, schedule).
+    every prediction, backward, and one ``optimizer`` step
+    (``training.optim``: clip, skip, schedule; with ``num_acc > 1`` the
+    gradient is accumulated and the update made every ``num_acc`` steps).
 
     ``batch`` is a dict on the model's device: ``chunk`` [B, bins, H, W]
     signed voxels (or [B, bins, 2, H, W]), ``label`` [B, 2, H, W], ``mask``
@@ -212,8 +213,10 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
     channels-second kernels K4 and K4a (``ops/hopper_embed.py``) over
     ``num_steps`` time steps and feeds the network through its
     ``pre_embedded`` input. It needs running-statistics BN and
-    ``num_steps``, and the base embed (not ``cfg.s2d_embed``, whose
-    block-space head the composition does not take); else it raises.
+    ``num_steps``, and the base embed (not ``cfg.s2d_embed`` nor
+    ``cfg.s2d_train``, whose block-space head the composition does not
+    take); else it raises. A model that ``training/bn_folding.py:fold_model``
+    folded runs here as any other (K1 and K2 on the folded weights).
 
     The step runs :class:`EvalStep` (``eval_step.module``) under
     ``torch.inference_mode()``; ``eval_step.model`` is the (cast) model.
@@ -222,9 +225,11 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
         if use_batch_stats or num_steps is None:
             raise ValueError("fused_embed needs running-statistics BN "
                              "(use_batch_stats=False) and num_steps")
-        if model.sttmultires_unet.encoders.patch_embed.s2d:
+        embed = model.sttmultires_unet.encoders.patch_embed
+        if embed.s2d or embed.s2d_train:
             raise ValueError("fused_embed takes the base MS_PED embed, not "
-                             "the s2d re-expression (cfg.s2d_embed)")
+                             "an s2d re-expression (cfg.s2d_embed, "
+                             "cfg.s2d_train)")
     if compute_dtype is not None and any(
             p.dtype != compute_dtype for p in model.parameters()):
         model = cast_params(copy.deepcopy(model), compute_dtype)

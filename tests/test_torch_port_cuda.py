@@ -382,6 +382,62 @@ def test_fused_affine_psn_grads_kernels_vs_plain(dev, affine):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k2b_block_space_head_width(dev, dtype):
+    """The s2d_train head's fused site: 4 x 48 = 192 block channels (the
+    en4 geometry's; here at 33x17 positions), its affine the tile of a
+    48-channel one. K2 bitwise with and without the affine on dyadic
+    inputs (at most 1e-3 of the spikes flipped on Gaussian ones), K2b
+    within tolerance of its twin on both."""
+    gen = torch.Generator().manual_seed(192)
+    for dyadic in (True, False):
+        x, g, w, b, kw = _psn_site(10, 192, dtype, True, gen, dev, dyadic)
+        kw = {k: v[:48].repeat(4) for k, v in kw.items()}    # tile4
+        for affine in ({}, kw):
+            with torch.inference_mode():
+                got = hopper_psn.fused_affine_psn(x, w, b, **affine)
+                want = hopper_psn.psn_spike(x, w, b, **affine)
+                torch.cuda.synchronize()
+                if dyadic:
+                    assert torch.equal(got, want)
+                else:
+                    assert (got != want).float().mean().item() <= 1e-3
+                assert 0.0 < got.float().mean().item() < 1.0
+            _k2b_check(dev, x, g, w, b, affine, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_unit_scale_with_shift_bitwise(dev, dtype):
+    """K1 as the folded model feeds it: the q/k affines a unit scale with
+    the folded linears' bias as the shift, proj_bn's (1, 0) after proj's
+    folded bias. Bitwise against the twin on dyadic inputs."""
+    M, C, nh = 4, 192, 6
+    gen = torch.Generator().manual_seed(11)
+    g = lambda *s, step=0.125, lo=-1.0, hi=1.0: _grid(  # noqa: E731
+        s, step, lo, hi, gen).to(dev)
+    ones = torch.ones(C, device=dev)
+    p = hopper_attn.QKAttnParams(
+        w_in=g(2, 2, step=0.25), b_in=g(2, step=0.25), wq=g(C, C), aq=ones,
+        cq=g(C), w_q=g(2, 2, step=0.25), b_q=g(2, step=0.25), wk=g(C, C),
+        ak=ones, ck=g(C), pe=g(2, 81, C), w_k=g(2, 2, step=0.25),
+        b_k=g(2, step=0.25),
+        w_t=torch.tensor([[0.5, 0.25], [0.25, 0.5]], device=dev),
+        b_t=torch.full((2,), -3 * (C // nh) / 8, device=dev), wp=g(C, C),
+        bp=g(C), ap=ones, cp=torch.zeros(C, device=dev))
+    assert p.cq.abs().max() > 0 and p.ck.abs().max() > 0
+    x = _grid((2, M, 9, 9, C), 0.25, -2.0, 2.0, gen).to(dev, dtype)
+    with torch.inference_mode():
+        before = hopper_attn.qk_attn_interior.launches
+        got = hopper_attn.qk_attn_interior(x, p, nh)
+        assert hopper_attn.qk_attn_interior.launches == before + 1
+        want = hopper_attn.qk_attn_interior_plain(x, p, nh)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert 0.0 < got.float().mean().item() < 1.0
+        assert torch.equal(hopper_attn.fused_qk_attention(x, p, nh),
+                           hopper_attn.qk_attention_pairlocal(x, p, nh))
+
+
 def test_k2b_refuses_what_it_does_not_take(dev):
     gen = torch.Generator().manual_seed(5)
     x, g, w, b, kw = _psn_site(10, 8, torch.float32, True, gen, dev, False)

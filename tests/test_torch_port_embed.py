@@ -332,6 +332,11 @@ def _fused_s2d():
                    num_steps=10)
 
 
+def _fused_s2d_train():
+    make_eval_step(_small_model(s2d_train=True), fused_embed=True,
+                   num_steps=10)
+
+
 def _s2d_train_mode():
     model = _small_model(s2d_embed=True).train()
     model(torch.zeros(1, 10, 2, 24, 32))
@@ -343,7 +348,8 @@ def _s2d_batch_stats():
 
 
 def _s2d_train():
-    _small_model(s2d_train=True)
+    # s2d_train is ported; with the eval-only s2d embed it is refused
+    _small_model(s2d_train=True, s2d_embed=True)
 
 
 def _s2d_norm():
@@ -358,9 +364,10 @@ RAISES = {
     "fused_batch_stats": (_fused_batch_stats, ValueError),
     "fused_no_steps": (_fused_no_steps, ValueError),
     "fused_s2d": (_fused_s2d, ValueError),
+    "fused_s2d_train": (_fused_s2d_train, ValueError),
     "s2d_train_mode": (_s2d_train_mode, ValueError),
     "s2d_batch_stats": (_s2d_batch_stats, ValueError),
-    "s2d_train": (_s2d_train, NotImplementedError),
+    "s2d_train": (_s2d_train, ValueError),
     "s2d_norm": (_s2d_norm, NotImplementedError),
     "s2d_state_of_another_model": (_s2d_state_of_another_model, ValueError),
 }

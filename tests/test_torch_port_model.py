@@ -102,11 +102,17 @@ def test_registry_and_unported_options_raise():
     after = model.state_dict()["sttmultires_unet.decoder0.norm."
                                "BatchNorm_0.running_mean"]
     assert not torch.equal(before, after)
-    for bad in (dict(neuron_type="lif"), dict(s2d_train=True),
-                dict(spike_norm="LN"), dict(s2d_embed=True, spike_norm="LN")):
+    for bad in (dict(neuron_type="lif"), dict(spike_norm="LN"),
+                dict(s2d_embed=True, spike_norm="LN")):
         with pytest.raises(NotImplementedError):
             get_model("MS_SpikingformerFlowNet_en4", {"num_bins": 4,
                       "base_num_channels": 8}, swin, cfg.replace(**bad))
+    # s2d_train is ported (test_torch_port_train_slice.py); it excludes
+    # the eval-only s2d embed, as in JAX
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        get_model("MS_SpikingformerFlowNet_en4", {"num_bins": 4,
+                  "base_num_channels": 8}, swin,
+                  cfg.replace(s2d_train=True, s2d_embed=True))
     # the s2d embed is ported, for eval only
     s2d = get_model("MS_SpikingformerFlowNet_en4", {"num_bins": 4,
                     "base_num_channels": 8}, swin, cfg.replace(s2d_embed=True))

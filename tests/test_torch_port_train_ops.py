@@ -386,9 +386,12 @@ def test_multistep_boundaries_match_optax():
         got = float(sched(torch.tensor(count)))
         np.testing.assert_allclose(got, float(j_sched(count)), rtol=1e-6)
         assert got == lr * 0.5 ** sum(count >= m * upe for m in milestones)
-    for bad in (dict(name="SGD"), dict(num_acc=2),
-                dict(scheduler="one_cycle")):
-        with pytest.raises(NotImplementedError):
+    # only an unknown scheduler raises (JAX falls back to a constant lr);
+    # SGD, Adam, OneCycle and num_acc are held in test_torch_port_optim.py
+    for bad, exc in ((dict(scheduler="cosine"), NotImplementedError),
+                     (dict(name="RMSprop"), ValueError),
+                     (dict(num_acc=0), ValueError)):
+        with pytest.raises(exc):
             optim.build_optimizer([("w", torch.nn.Parameter(
                 torch.zeros(2)))], **bad)
 
@@ -431,8 +434,12 @@ def test_augmentation_transforms_match_jax_at_fixed_decisions():
                                          [1.0, 0.0, 1.0, 0.0], crop=(6, 8))
     e2, f2, m2 = apply(torch.Generator().manual_seed(1), te, tf, tm)
     assert e2.shape == (2, 3, 6, 8) and f2.shape == (2, 2, 6, 8)
-    with pytest.raises(NotImplementedError):
-        aug.build_train_augmentation(["Rotation"], [0.5])
+    # Rotation is ported (held against JAX in
+    # test_torch_port_train_slice.py): it keeps the shapes
+    e3, f3, m3 = aug.build_train_augmentation(["Rotation"], [0.5],
+                                              rotation_degrees=(-30, 30))(
+        torch.Generator().manual_seed(1), te, tf, tm)
+    assert e3.shape == te.shape and f3.shape == tf.shape == (2, 2, 10, 12)
 
 
 def test_train_attention_matches_flax_f64():

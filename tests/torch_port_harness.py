@@ -34,17 +34,21 @@ def randomize_tree(variables, seed: int):
 
 
 def flownet_pair(*, size, depths, heads, window, num_steps, num_bins, base,
-                 drop_path_rate=0.2, s2d_embed=False):
+                 drop_path_rate=0.2, s2d_embed=False, mlp_ratio=4.0,
+                 **cfg_extra):
     """(JAX model with the fused Pallas attention, port model) of one
-    SDformerFlow geometry, with the s2d embed head if ``s2d_embed``."""
+    SDformerFlow geometry, with the s2d embed head if ``s2d_embed``; the
+    ``cfg_extra`` switches (``fold_bn``, ``s2d_train``) go to both
+    SpikingConfigs."""
     swin_kw = dict(arc_type="swinv1",
                    patch_embed_type="MS_PED_Spiking_PatchEmbed_Conv_sfn",
                    input_size=size, patch_size=(1, 1, 2, 2), depths=depths,
                    num_heads=heads, out_indices=tuple(range(len(depths))),
                    window_size=window, qk_scale=0.125,
-                   drop_path_rate=drop_path_rate)
+                   drop_path_rate=drop_path_rate, mlp_ratio=mlp_ratio)
     cfg_kw = dict(num_steps=num_steps, v_th=0.1, v_reset=None,
-                  neuron_type="psn", spike_norm="BN", s2d_embed=s2d_embed)
+                  neuron_type="psn", spike_norm="BN", s2d_embed=s2d_embed,
+                  **cfg_extra)
     net_kw = dict(num_bins=num_bins, base_num_channels=base,
                   num_encoders=len(depths), use_upsample_conv=False, ms=True)
     jmodel = JSpikingformerFlowNet(
@@ -58,9 +62,11 @@ def flownet_pair(*, size, depths, heads, window, num_steps, num_bins, base,
 def init_pair(jmodel, tmodel, x_enc: np.ndarray, seed: int):
     """Randomized float64 variables for both models (crossed through
     ``from_jax``); returns the JAX variables."""
-    variables = jax.jit(lambda z: jmodel.init(
-        {"params": jax.random.PRNGKey(0)}, z, False))(x_enc.astype(np.float32))
-    variables = randomize_tree(variables, seed)
+    # every leaf is drawn anew: the init's shapes are enough (no compile)
+    shapes = jax.eval_shape(lambda z: jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, z, False), x_enc.astype(np.float32))
+    variables = randomize_tree(jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape), shapes), seed)
     tmodel.double().load_state_dict(from_jax(variables, tmodel))
     return variables
 
