@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, train and DSEC evaluation paths and its
-MDR / MVSEC slice once on one NVIDIA H100, for the en4 SNN and the ANN
-family.
+MDR / MVSEC slice once on one NVIDIA H100, for the en4 SNN, the rest of the
+SNN zoo and the ANN family.
 
 Run from the root of the repository, with no arguments:
 
@@ -191,7 +191,26 @@ Phases (any failure exits non-zero):
    updates, the median wait of a step for its prefetched batch. The JSON
    line ``{"train_slice": ...}`` before the kernels line holds them, and
    each kernel entry's ``launches_folded_forward`` and
-   ``launches_s2d_train_step`` the launches of those runs.
+   ``launches_s2d_train_step`` the launches of those runs;
+17. the rest of the SNN zoo at full width, from the en4 config cut to 3
+   stages (depths (2, 2, 6), heads (3, 6, 12), out_indices (0, 1, 2); base
+   96, T = 10, window (2, 9, 9), PSN + BN, 288x384, seeded random weights):
+   the SEW ``SpikingformerFlowNet`` (``Spiking_PatchEmbed_Conv_sfn``)
+   served in bf16 through ``FlowServer`` on 16 voxel requests (K2 once at
+   every PSN site, p50 / p90, device busy) with every K2 launch of a
+   forward held against its twin and each site's firing rate inside
+   (0, 1); its float32 train step at batch 1 (K2 and K2b once at every
+   site, each K2 launch against its twin, each K2b launch's dx within
+   1e-5 of the float64 twin's largest, p50 / p90 of 4 steps after 2,
+   device busy, peak memory); ``MS_SpikingformerFlowNet``
+   (``MS_Spiking_PatchEmbed_Conv_sfn``) in bf16: K1 10 launches a forward
+   and K2, each against its twin; the SEW model with LIF (the JAX
+   default neuron) in bf16: no kernel launch, timed for information;
+   ``SpikingMultiResUNet`` with its registry defaults (base 32, 4
+   encoders, kernel 5, upsample-conv decoders) in bf16: K2, each launch
+   against its twin. The JSON line ``{"zoo": ...}`` before the kernels
+   line holds them, and each kernel entry's ``launches_zoo`` the launches
+   of those runs.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -4821,6 +4840,307 @@ def phase_train_slice(torch, dev, config, state_dict, card):
                 phase_s=phase_s)
 
 
+# ----------------------------------------------------------- phase 17
+# the rest of the SNN zoo at full width (the en4 config cut to 3 stages):
+# the SEW SpikingformerFlowNet served in bf16 (K2 at every PSN site) and
+# trained in float32 (K2 and K2b at every site), MS_SpikingformerFlowNet
+# (K1 at its 10 blocks and K2), the SEW model with LIF (no kernel at its
+# neuron sites) and SpikingMultiResUNet with its registry defaults (K2)
+
+ZOO_EMBED = "Spiking_PatchEmbed_Conv_sfn"
+N_ZOO_REQUESTS = 16     # served requests of the SEW model, one at a time
+N_ZOO_FORWARDS = 6      # timed forwards of the other zoo models
+N_ZOO_STEPS = 6         # timed train steps, the first 2 warm-up
+
+
+def zoo_config(name, embed=ZOO_EMBED, **spiking):
+    """The en4 config with ``model.name``, the patch embed, depths
+    (2, 2, 6), heads (3, 6, 12), out_indices (0, 1, 2) and ``spiking``
+    over its ``spiking_neuron`` section; all else as the en4 config."""
+    from sdformerflow_tpu_torch.training.config import load_config
+    config = load_config(CONFIG)
+    config["model"]["name"] = name
+    sw = config["swin_transformer"]
+    sw.update(use_arc=[sw["use_arc"][0], embed], swin_depths=[2, 2, 6],
+              swin_num_heads=[3, 6, 12], swin_out_indices=[0, 1, 2])
+    config["model"]["spiking_neuron"].update(spiking)
+    return config
+
+
+def zoo_model(torch, config, model_cfg=None):
+    """The config's model (``model_cfg`` in place of the config's model
+    section if given) in float32 eval mode with seeded random weights."""
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.training.config import build_configs
+    mcfg, swin, cfg = build_configs(config)
+    model = get_model(config["model"]["name"], model_cfg or mcfg, swin, cfg)
+    return randomize_(model, torch.Generator().manual_seed(SEED + 70))
+
+
+@contextlib.contextmanager
+def psn_calls(model, calls):
+    """Count in ``calls[0]`` the PSN-site calls of ``model`` (each must
+    launch K2 once on the card)."""
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+
+    def hook(mod, args):
+        calls[0] += 1
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, SpikingNeuron) and m.kind == "psn"]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def zoo_counted(torch, step, model, chunk):
+    """One forward of ``step`` with the launch counts set to 0 just before
+    and read just after: (finest flow, K1, K2, PSN-site calls)."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    calls = [0]
+    with psn_calls(model, calls):
+        A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
+        flow = step(chunk)[-1]
+        torch.cuda.synchronize()
+        k1, k2 = A.qk_attn_interior.launches, P.fused_affine_psn.launches
+    return flow, k1, k2, calls[0]
+
+
+def zoo_checked(torch, step, chunk, label, kernels):
+    """One forward of ``step`` with every K1 and K2 launch held against its
+    plain twin on the same input (no more than MAX_FLIP_SHARE of the output
+    spikes flipped, for each of ``kernels``) and each K2 site's firing
+    rate inside (0, 1). Returns the flips and the rates."""
+    flips = {"K1": [0, 0], "K2": [0, 0]}
+    rates = []
+    psn, attend = checked_kernels(flips)
+
+    def psn_rate(x, w, b, **kw):
+        y = psn(x, w, b, **kw)
+        rates.append(float(y.float().mean()))
+        return y
+
+    with site_functions(psn_rate, attend):
+        flow = step(chunk)[-1]
+    check(bool(torch.isfinite(flow).all()), f"{label}: non-finite flow")
+    for key in kernels:
+        n_flip, n = flips[key]
+        check(n > 0 and n_flip <= MAX_FLIP_SHARE * n,
+              f"{label}: {key} flipped {n_flip} of {n} spikes")
+    check(rates and all(0.0 < r < 1.0 for r in rates),
+          f"{label}: a K2 site fires all-0 or all-1 (rates "
+          f"{min(rates or [0]):.3g}-{max(rates or [0]):.3g}): the check "
+          "would be vacuous")
+    return flips, rates
+
+
+def forward_p50(torch, step, chunks):
+    """Host ms per forward (to the finest flow on the host), p50 / p90."""
+    ms = []
+    for c in chunks:
+        t0 = time.perf_counter()
+        step(c)[-1].cpu()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return [float(v) for v in np.percentile(ms, [50, 90])]
+
+
+def zoo_serving(torch, dev, hw, card):
+    """(a) the SEW model served in bf16 through FlowServer on voxel
+    requests: K2 once at every PSN site, each launch against its twin."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.serving import FlowServer
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    config = zoo_config("SpikingformerFlowNet")
+    model = zoo_model(torch, config)
+    state = model.state_dict()
+    requests = voxel_requests(N_ZOO_REQUESTS, 10, hw, SEED + 71)
+    calls = [0]
+    with FlowServer(config, state, device=dev, bf16=True) as server:
+        server.infer(requests[0])                    # warm-up
+        with psn_calls(server.model, calls):
+            A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
+            lat, flows = [], []
+            for r in requests:
+                t0 = time.perf_counter()
+                flows.append(server.infer(r))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            k1, k2 = A.qk_attn_interior.launches, P.fused_affine_psn.launches
+        busy = device_ms_per_call(torch, lambda: server.infer(requests[0]),
+                                  4)
+    n = len(requests)
+    check(k1 == 0 and k2 == calls[0] and k2 > 0 and k2 % n == 0,
+          f"SEW serving: K2 {k2} launches for {calls[0]} PSN-site calls "
+          f"over {n} requests (K1 {k1})")
+    check(all(f.shape == (2,) + tuple(hw) and np.isfinite(f).all()
+              for f in flows), "SEW serving: flows")
+    step = make_eval_step(model.to(dev), compute_dtype=torch.bfloat16)
+    chunk = torch.from_numpy(requests[0])[None].to(dev)
+    flips, rates = zoo_checked(torch, step, chunk, "[17] SEW bf16", ("K2",))
+    p50, p90 = (float(v) for v in np.percentile(lat, [50, 90]))
+    log(f"[17] SEW SpikingformerFlowNet ({ZOO_EMBED}, depths (2,2,6), "
+        f"{hw[0]}x{hw[1]}, bf16) served: K2 {k2 // n} launches a request (one at "
+        f"each PSN site), K1 0; against the twin {flips['K2'][0]} of "
+        f"{flips['K2'][1]} spikes flipped; site firing rates "
+        f"{min(rates):.3f}-{max(rates):.3f}")
+    log(f"[17] on {card}, {n} requests one at a time: p50 {p50:.2f} ms, "
+        f"p90 {p90:.2f}; device busy per request "
+        + ("not measured" if busy is None else f"{busy:.2f} ms"))
+    del step
+    return state, dict(k2_per_request=k2 // n, p50_ms=p50, p90_ms=p90,
+                       device_ms=busy, k2_flipped=flips["K2"][0],
+                       k2_spikes=flips["K2"][1], rate_min=min(rates),
+                       rate_max=max(rates))
+
+
+def zoo_train(torch, dev, state, hw, card):
+    """(b) the SEW model's float32 train step at batch 1 (TF32 off): K2 and
+    K2b once at every PSN site, each K2 launch against its twin, each K2b
+    launch's dx within K2B_TOL of the float64 twin's largest; p50 / p90,
+    device busy and peak memory."""
+    import functools
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    config = zoo_config("SpikingformerFlowNet")
+    model, opt, step = en4_trainer(torch, dev, config, state)
+    batch = train_batch(torch, dev, hw, SEED + 72)
+    flips, dx_err = [0, 0], [0.0]
+
+    def checked_fwd(x, w, b, *, scale=None, shift=None):
+        y = P.fused_affine_psn(x, w, b, scale=scale, shift=shift)
+        flips[0] += int((y != P.psn_spike(x, w, b, scale=scale,
+                                          shift=shift)).sum())
+        flips[1] += y.numel()
+        return y
+
+    def checked_bwd(x, g, w, b, **kw):
+        got = P.fused_psn_backward(x, g, w, b, **kw)
+        want = plain64(P, x, g, w, b, **kw)
+        dx_err[0] = max(dx_err[0], rel_err(got[0], want[0])[1])
+        return got
+
+    calls = [0]
+    impl = P.PSNImpl(checked_fwd, checked_bwd)
+    with psn_calls(model, calls):
+        P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+        with site_functions(functools.partial(P.affine_psn, impl=impl)):
+            loss = step(batch)["loss"].item()
+        torch.cuda.synchronize()
+        k2, k2b = P.fused_affine_psn.launches, P.fused_psn_backward.launches
+    check(np.isfinite(loss), f"SEW train step: loss {loss}")
+    check(k2 == k2b == calls[0] > 0, f"SEW train step: K2 {k2}, K2b {k2b} "
+          f"launches for {calls[0]} PSN-site calls")
+    check(flips[0] <= MAX_FLIP_SHARE * flips[1],
+          f"SEW train step: K2 flipped {flips[0]} of {flips[1]} spikes")
+    check(dx_err[0] <= K2B_TOL, f"SEW train step: K2b dx {dx_err[0]:.3g} "
+          "of the float64 twin's largest")
+    ms, counts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(N_ZOO_STEPS):
+        c0 = (P.fused_affine_psn.launches, P.fused_psn_backward.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_i = step(batch)["loss"].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append((P.fused_affine_psn.launches - c0[0],
+                       P.fused_psn_backward.launches - c0[1]))
+        check(np.isfinite(loss_i), f"SEW train step: loss {loss_i}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(c == (k2, k2b) for c in counts),
+          f"K2 / K2b launches per step: {counts}")
+    busy = device_ms_per_call(torch, lambda: step(batch), 2)
+    p50, p90 = (float(v) for v in np.percentile(ms[2:], [50, 90]))
+    log(f"[17] SEW train step (f32, TF32 off, {hw[0]}x{hw[1]}, batch 1): "
+        f"K2 {k2}, "
+        f"K2b {k2b} launches a step (one each at every PSN site); K2 "
+        f"flipped {flips[0]} of {flips[1]} spikes against its twin; K2b dx "
+        f"{dx_err[0]:.3g} of the float64 twin's largest; loss {loss:.6g}")
+    log(f"[17] on {card}, {N_ZOO_STEPS} steps (2 warm-up): p50 {p50:.2f} "
+        f"ms, p90 {p90:.2f}, device busy "
+        + ("not measured" if busy is None else f"{busy:.2f} ms")
+        + f", peak {peak:.3f} GiB")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return dict(k2_per_step=k2, k2b_per_step=k2b, k2_flipped=flips[0],
+                k2_spikes=flips[1], k2b_dx_err=dx_err[0], loss=loss,
+                p50_ms=p50, p90_ms=p90, device_ms=busy, peak_gib=peak)
+
+
+def zoo_forward(torch, dev, hw, card, label, config, kernels,
+                model_cfg=None):
+    """A bf16 forward of the config's model: the counted run (K1 and K2
+    launches, PSN-site calls), the launches held against their twins if
+    ``kernels``, and the p50 / p90 of N_ZOO_FORWARDS forwards."""
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    model = zoo_model(torch, config, model_cfg).to(dev)
+    step = make_eval_step(model, compute_dtype=torch.bfloat16)
+    chunks = [torch.from_numpy(r)[None].to(dev)
+              for r in voxel_requests(N_ZOO_FORWARDS, 10, hw, SEED + 73)]
+    step(chunks[0])                                   # warm-up
+    flow, k1, k2, calls = zoo_counted(torch, step, step.model, chunks[0])
+    check(flow.shape == (1, 2) + tuple(hw)
+          and bool(torch.isfinite(flow).all()), f"{label}: flow")
+    check(k2 == calls, f"{label}: K2 {k2} launches for {calls} PSN-site "
+          "calls")
+    out = dict(k1=k1, k2=k2)
+    if kernels:
+        flips, rates = zoo_checked(torch, step, chunks[0], f"[17] {label}",
+                                   kernels)
+        out.update(flipped={k: flips[k][0] for k in kernels},
+                   spikes={k: flips[k][1] for k in kernels},
+                   rate_min=min(rates), rate_max=max(rates))
+    p50, p90 = forward_p50(torch, step, chunks)
+    out.update(p50_ms=p50, p90_ms=p90)
+    log(f"[17] {label} ({hw[0]}x{hw[1]}, bf16): K1 {k1}, K2 {k2} launches a "
+        "forward" + "".join(f"; {k} flipped {out['flipped'][k]} of "
+                            f"{out['spikes'][k]} spikes against its twin"
+                            for k in kernels)
+        + f"; on {card}, {len(chunks)} forwards: p50 {p50:.2f} ms, p90 "
+        f"{p90:.2f}")
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo(torch, dev, card):
+    t_phase = time.perf_counter()
+    from sdformerflow_tpu_torch.training.config import load_config
+    hw = tuple(load_config(CONFIG)["loader"]["crop"])
+    state, serving = zoo_serving(torch, dev, hw, card)
+    train = zoo_train(torch, dev, state, hw, card)
+    del state
+    ms = zoo_forward(torch, dev, hw, card, "MS_SpikingformerFlowNet "
+                     "(MS_Spiking_PatchEmbed_Conv_sfn, depths (2,2,6))",
+                     zoo_config("MS_SpikingformerFlowNet",
+                                "MS_Spiking_PatchEmbed_Conv_sfn"),
+                     ("K1", "K2"))
+    check(ms["k1"] == 10 and ms["k2"] > 0, f"MS_SpikingformerFlowNet: K1 "
+          f"{ms['k1']}, K2 {ms['k2']} launches, expected K1 10")
+    lif = zoo_forward(torch, dev, hw, card, "SEW SpikingformerFlowNet "
+                      "with LIF", zoo_config("SpikingformerFlowNet",
+                                             neuron_type="lif"), ())
+    check(lif["k1"] == lif["k2"] == 0, f"LIF model: K1 {lif['k1']}, K2 "
+          f"{lif['k2']} launches, expected none")
+    unet = zoo_forward(torch, dev, hw, card, "SpikingMultiResUNet (base "
+                       "32, 4 encoders, k 5, upsample-conv)",
+                       zoo_config("SpikingMultiResUNet"), ("K2",),
+                       model_cfg={"num_bins": 10})
+    check(unet["k1"] == 0 and unet["k2"] > 0, f"SpikingMultiResUNet: K1 "
+          f"{unet['k1']}, K2 {unet['k2']} launches")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[17] phase 17: {phase_s:.1f} s")
+    return dict(
+        sew_serving=serving, sew_train=train, ms=ms, sew_lif=lif, unet=unet,
+        launches={"K1": ms["k1"],
+                  "K2": {"sew_request": serving["k2_per_request"],
+                         "sew_train_step": train["k2_per_step"],
+                         "ms_forward": ms["k2"],
+                         "unet_forward": unet["k2"]},
+                  "K2b": train["k2b_per_step"]},
+        phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -4883,6 +5203,7 @@ def main() -> int:
         mdr = phase_mdr(torch, dev, card)
         deploy = phase_deploy(torch, dev, config, state_dict, card)
         slice16 = phase_train_slice(torch, dev, config, state_dict, card)
+        zoo = phase_zoo(torch, dev, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4903,7 +5224,9 @@ def main() -> int:
     # train_mdr en4 (K2, K2b and the validations' K1), train_mdr STT (none)
     # and eval_mvsec dt1 / dt4; the exported programs' (phase 15): 8 voxel
     # and 8 events requests reloaded in a fresh process; the folded serving
-    # forward's and the s2d_train step's (phase 16)
+    # forward's and the s2d_train step's (phase 16); the SNN zoo's (phase
+    # 17): K2 a SEW request and train step, K2b a SEW train step, K1 and K2
+    # an MS_SpikingformerFlowNet forward, K2 a SpikingMultiResUNet forward
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -5002,6 +5325,7 @@ def main() -> int:
             .get(key, 0)
         entry["launches_s2d_train_step"] = slice16["s2d_train"]["launches"] \
             .get(key, 0)
+        entry["launches_zoo"] = zoo["launches"].get(key, 0)
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -5021,6 +5345,7 @@ def main() -> int:
     log(json.dumps({"mdr_mvsec": mdr}))
     log(json.dumps({"deploy": deploy}))
     log(json.dumps({"train_slice": slice16}))
+    log(json.dumps({"zoo": zoo}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

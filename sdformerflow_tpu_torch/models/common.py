@@ -4,11 +4,13 @@ Plain frozen dataclasses with the JAX package's field names and defaults for
 every field ``training/config.py:build_configs`` fills, and ``fold_bn``.
 The JAX-only switches left out:
 
-- ``fused_qk_attn``: the port runs K1 at every even window count in eval;
+- ``fused_qk_attn``: the port runs K1 at every even window count of a
+  temporal window of 2 in eval, for a PSN with running-statistics BN;
 - ``pairlocal_attn``: the port always runs the pair-local form at an even
-  window count (in train; K1 is its eval form), which is what the switch
-  selects in JAX, and the raw-refold form at an odd one, where JAX's
-  switch has no effect either;
+  window count of a temporal window of 2 (in train, or for another neuron
+  or norm; K1 is its eval form), which is what the switch selects in JAX,
+  and the raw-refold form elsewhere, where JAX's switch has no effect
+  either;
 - ``store_v_seq``: the membrane monitor (ROADMAP section 1 item 9).
 
 One deviation under ``fold_bn``: JAX turns its fused attention off there

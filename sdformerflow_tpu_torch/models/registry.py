@@ -1,7 +1,6 @@
-"""Model registry, mirror of ``sdformerflow_tpu/models/registry.py`` for the
-ported names (the en4 SNN and the ANN family), plus the seeded
-randomization the port's checks run on (the repo has no trained
-checkpoint).
+"""Model registry, mirror of ``sdformerflow_tpu/models/registry.py`` (every
+name: the SNN zoo and the ANN family), plus the seeded randomization the
+port's checks run on (the repo has no trained checkpoint).
 
 ``input_bins`` (``training.config.chunk_bins``: ``data.num_frames *
 data.num_chunks``) is the bin count of the chunks an STTFlowNet will take;
@@ -41,17 +40,47 @@ def get_model(name: str, model_cfg: dict, swin_cfg: SwinConfig,
     return MODEL_REGISTRY[name](model_cfg, swin_cfg, spiking_cfg).train(train)
 
 
-@register_model("MS_SpikingformerFlowNet_en4")
-def _mssf4(model_cfg, swin_cfg, spiking_cfg):
+def _spikingformer(model_cfg, swin_cfg, spiking_cfg, *, ms, num_en):
     from .snn_flownet import SpikingformerFlowNet
     return SpikingformerFlowNet(
         swin=swin_cfg, cfg=spiking_cfg,
         num_bins=model_cfg.get("num_bins", 10),
         base_num_channels=model_cfg.get("base_num_channels", 96),
         kernel_size=model_cfg.get("kernel_size", 3),
-        num_encoders=4,
+        num_encoders=num_en,
         use_upsample_conv=model_cfg.get("use_upsample_conv", False),
-        ms=True)
+        ms=ms)
+
+
+@register_model("SpikingformerFlowNet")
+def _sf(model_cfg, swin_cfg, spiking_cfg):
+    return _spikingformer(model_cfg, swin_cfg, spiking_cfg, ms=False,
+                          num_en=3)
+
+
+@register_model("MS_SpikingformerFlowNet")
+def _mssf(model_cfg, swin_cfg, spiking_cfg):
+    return _spikingformer(model_cfg, swin_cfg, spiking_cfg, ms=True,
+                          num_en=3)
+
+
+@register_model("MS_SpikingformerFlowNet_en4")
+def _mssf4(model_cfg, swin_cfg, spiking_cfg):
+    return _spikingformer(model_cfg, swin_cfg, spiking_cfg, ms=True,
+                          num_en=4)
+
+
+@register_model("SpikingMultiResUNet")
+def _smru(model_cfg, swin_cfg, spiking_cfg):
+    from .snn_flownet import SpikingMultiResUNetFlow
+    return SpikingMultiResUNetFlow(
+        cfg=spiking_cfg,
+        num_bins=model_cfg.get("num_bins", 10),
+        base_num_channels=model_cfg.get("base_num_channels", 32),
+        num_encoders=model_cfg.get("num_encoders", 4),
+        kernel_size=model_cfg.get("kernel_size", 5),
+        use_upsample_conv=model_cfg.get("use_upsample_conv", True),
+        ms=model_cfg.get("ms", False))
 
 
 def _sttflownet(model_cfg, swin_cfg, spiking_cfg, *, num_en):
@@ -101,8 +130,10 @@ def randomize_(model: nn.Module, generator: torch.Generator,
                scale: float = 0.4, var_floor: float = 0.25) -> nn.Module:
     """Overwrite every parameter and BN statistic with seeded noise, in
     place: ``scale * N(0, 1)`` everywhere, BN variances ``|.| + var_floor``.
-    Degenerate inits (zero positional encodings, identity BN, symmetric PSN
-    mixes) would hide wrong pairings in an A/B, so every value is drawn."""
+    Degenerate inits (zero positional encodings and relative-position
+    tables, identity BN, symmetric PSN mixes, equal PLIF decays and GLIF
+    gates, the constant ``logit_scale``) would hide wrong pairings in an
+    A/B, so every entry of the state_dict is drawn."""
     for name, t in sorted(model.state_dict().items()):
         noise = torch.randn(t.shape, generator=generator, dtype=torch.float64,
                             device=generator.device)

@@ -1,20 +1,33 @@
-"""Spiking layers, the PSN / BN subset of
-``sdformerflow_tpu/models/spiking_layers.py``, in eval and train mode.
+"""Spiking layers, mirrors of ``sdformerflow_tpu/models/spiking_layers.py``:
+the neuron factory over every neuron type, the norm zoo, and the SEW and MS
+conv layers, in eval and train mode.
 
 Features are time-major channels-last ``[T, B, H, W, C]``; convolutions run
 on the ``(T, B)``-flattened batch in NCHW views of that layout (channels-last
 memory, so cuDNN reads it without a copy). Module and parameter names follow
 the flax tree one to one (``training/from_jax.py`` maps leaf names and
-layouts only). A BN followed by a PSN runs as one fused site (K2 forward,
-K2b backward): the BN becomes the per-channel affine ``(a, c)`` of its
-running statistics in eval mode, and of the batch statistics, with their
-gradient, in train mode.
+layouts only).
+
+A norm followed by a neuron is one site (:func:`norm_spike`). Where the
+neuron is a PSN and the norm a running-statistics BN (BN, TDBN) or none,
+the site is one fused pass (K2 forward, K2b backward,
+``ops/hopper_psn.py``): the BN becomes the per-channel affine ``(a, c)`` of
+its running statistics in eval mode, and of the batch statistics, with their
+gradient, in train mode. Any other pair runs the norm as its own pass, then
+the neuron: the IF / LIF / SLTT-LIF / PLIF / GLIF recurrences are loops
+over T (``ops/neurons.py``), and BNTT's per-step statistics, BN_notrack's
+batch statistics and GN / IN / LN are no per-channel affine.
 
 ``cfg.fold_bn`` (JAX ``norm_is_folded``, ``spiking_layers.py:44-47``)
-removes every foldable BN site: its norm becomes :class:`FoldedNorm` and
-its partner conv / linear / deconv gains a bias, at the places JAX does;
-the weights come from ``training/bn_folding.py:fold_model``. A fused
-BN -> PSN site then runs K2 with no affine.
+removes every foldable BN site (BN, TDBN): its norm becomes
+:class:`FoldedNorm` and its partner conv / linear / deconv gains a bias, at
+the places JAX does; the weights come from
+``training/bn_folding.py:fold_model``. A fused BN -> PSN site then runs K2
+with no affine.
+
+Not ported: the MS Sep-conv layers (``spiking_layers.py:631-748``, which no
+model of the JAX package calls) and the neuron telemetry (the
+``spike_rate`` / membrane sows).
 """
 
 from __future__ import annotations
@@ -24,35 +37,82 @@ import math
 import torch
 import torch.nn as nn
 
+from ..ops import neurons
 from ..ops.hopper_attn import bn_eval_affine
 from ..ops.hopper_psn import affine_psn
+from ..ops.interpolate import resize_bilinear
+from ..ops.surrogate import get_surrogate
 from .common import SpikingConfig
+
+NEURON_TYPES = ("if", "lif", "slttlif", "plif", "psn", "glif")
+
+
+class GLIF(nn.Module):
+    """GLIF's learnable logits (``ops/neurons.py:GLIFParams``), one
+    parameter each, named like the fields of JAX's packed ``glif`` tree."""
+
+    def __init__(self, T: int, generator=None):
+        super().__init__()
+        init = neurons.glif_init(generator, T, init_tau=0.25,
+                                 init_v_threshold=0.5, init_conduct=0.5)
+        for name, value in init._asdict().items():
+            setattr(self, name, nn.Parameter(value))
+
+    def params(self) -> neurons.GLIFParams:
+        return neurons.GLIFParams(*(getattr(self, f)
+                                    for f in neurons.GLIFParams._fields))
 
 
 class SpikingNeuron(nn.Module):
-    """PSN neuron over [T, ...]: ``H(W[T, T] @ x + b)`` with the config's
-    surrogate gradient; with ``affine=(a, c)`` the per-channel affine
-    ``a * x + c`` of a preceding BN is applied in the same pass (K2's fused
-    form, K2b in the backward)."""
+    """The config's neuron over [T, ...] with its surrogate gradient.
+
+    PSN: ``H(W[T, T] @ x + b)``; with ``affine=(a, c)`` the per-channel
+    affine ``a * x + c`` of a preceding BN is applied in the same pass (K2's
+    fused form, K2b in the backward). IF / LIF / SLTT-LIF / PLIF (parameter
+    ``w``) / GLIF (parameters under ``glif``): the recurrences of
+    ``ops/neurons.py``, which take no affine."""
 
     def __init__(self, cfg: SpikingConfig):
         super().__init__()
-        if cfg.neuron_type.lower() != "psn":
-            raise NotImplementedError(
-                f"neuron_type {cfg.neuron_type!r}: only PSN is ported")
+        self.kind = cfg.neuron_type.lower()
+        if self.kind not in NEURON_TYPES:
+            raise ValueError(f"unknown neuron_type {cfg.neuron_type!r}")
+        self.cfg = cfg
         T = cfg.num_steps
-        self.surrogate, self.alpha = cfg.surrogate, cfg.surrogate_alpha
-        bound = math.sqrt(1.0 / T)  # kaiming_uniform(a=sqrt(5)) on [T, T]
-        self.weight = nn.Parameter(torch.empty(T, T).uniform_(-bound, bound))
-        self.bias = nn.Parameter(torch.full((T, 1), -1.0))
+        if self.kind == "psn":
+            bound = math.sqrt(1.0 / T)  # kaiming_uniform(a=sqrt(5)) on [T, T]
+            self.weight = nn.Parameter(
+                torch.empty(T, T).uniform_(-bound, bound))
+            self.bias = nn.Parameter(torch.full((T, 1), -1.0))
+        elif self.kind == "plif":
+            self.w = nn.Parameter(torch.tensor(neurons.plif_init_w(cfg.tau)))
+        elif self.kind == "glif":
+            self.glif = GLIF(T)
 
     def forward(self, x, affine=None):
-        if x.shape[0] != self.weight.shape[0]:
-            raise ValueError(f"PSN built for T={self.weight.shape[0]} but "
-                             f"input has T={x.shape[0]}")
-        scale, shift = affine if affine is not None else (None, None)
-        return affine_psn(x, self.weight, self.bias, scale=scale, shift=shift,
-                          surrogate=self.surrogate, alpha=self.alpha)
+        cfg = self.cfg
+        if self.kind == "psn":
+            if x.shape[0] != self.weight.shape[0]:
+                raise ValueError(f"PSN built for T={self.weight.shape[0]} "
+                                 f"but input has T={x.shape[0]}")
+            scale, shift = affine if affine is not None else (None, None)
+            return affine_psn(x, self.weight, self.bias, scale=scale,
+                              shift=shift, surrogate=cfg.surrogate,
+                              alpha=cfg.surrogate_alpha)
+        if affine is not None:
+            raise ValueError(f"a {self.kind} neuron takes no fused affine")
+        sg = get_surrogate(cfg.surrogate, cfg.surrogate_alpha)
+        reset = dict(v_th=cfg.v_th, v_reset=cfg.v_reset, surrogate_fn=sg,
+                     detach_reset=cfg.detach_reset)
+        if self.kind == "if":
+            return neurons.if_neuron(x, **reset)
+        if self.kind == "lif":
+            return neurons.lif_neuron(x, tau=cfg.tau, **reset)
+        if self.kind == "slttlif":
+            return neurons.sltt_lif_neuron(x, tau=cfg.tau, **reset)
+        if self.kind == "plif":
+            return neurons.plif_neuron(x, self.w, **reset)
+        return neurons.glif_neuron(x, self.glif.params(), surrogate_fn=sg)
 
 
 class TorchBatchNorm(nn.Module):
@@ -66,12 +126,14 @@ class TorchBatchNorm(nn.Module):
     statistics.
     """
 
+    fusable = True
+
     def __init__(self, features: int, eps: float = 1e-5,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, scale_init: float = 1.0):
         super().__init__()
         self.eps, self.momentum = eps, momentum
         self.update_running_stats = True
-        self.weight = nn.Parameter(torch.ones(features))
+        self.weight = nn.Parameter(torch.full((features,), scale_init))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
@@ -121,11 +183,12 @@ class TorchBatchNorm(nn.Module):
         return a, self.bias.to(cdt) - mean * a
 
 
-class FoldedNorm(nn.Module):
-    """A BN site that folding removed (its affine is in the partner layer's
-    weight and bias): the identity, with no affine for a fused PSN site.
-    It holds no parameter, so the folded model's state_dict has no entry
-    of the norm."""
+class NoNorm(nn.Module):
+    """A site with no norm (``spike_norm`` None, or a norm kind the site
+    does not apply): the identity, with no affine for a fused PSN site and
+    no parameter."""
+
+    fusable = True
 
     def forward(self, x):
         return x
@@ -134,9 +197,18 @@ class FoldedNorm(nn.Module):
         return None
 
 
+class FoldedNorm(NoNorm):
+    """A BN site that folding removed (its affine is in the partner layer's
+    weight and bias): the identity, with no affine for a fused PSN site.
+    It holds no parameter, so the folded model's state_dict has no entry
+    of the norm."""
+
+
 # norm kinds whose eval affine folds into the adjacent conv / linear
-# (running-statistics BN; only BN is ported)
+# (running-statistics BN; BN_notrack uses batch statistics in eval too and
+# BNTT has per-step statistics: neither folds)
 _FOLDABLE_NORMS = ("BN", "tdBN", "TDBN")
+NORM_TYPES = ("BN", "BN_notrack", "TDBN", "BNTT", "GN", "IN", "LN")
 
 
 def norm_is_folded(norm, cfg: SpikingConfig) -> bool:
@@ -144,31 +216,116 @@ def norm_is_folded(norm, cfg: SpikingConfig) -> bool:
     return cfg.fold_bn and norm in _FOLDABLE_NORMS
 
 
-def spiking_norm(channels: int, cfg: SpikingConfig, norm=None):
-    """The norm of a BN site: :class:`SpikingNorm` of ``norm`` (default the
-    config's), or :class:`FoldedNorm` when ``cfg.fold_bn`` folds it."""
-    norm = cfg.spike_norm if norm is None else norm
-    return FoldedNorm() if norm_is_folded(norm, cfg) else SpikingNorm(
-        channels, norm)
+def spiking_norm(channels: int, cfg: SpikingConfig, norm="cfg"):
+    """The norm of a site: :class:`SpikingNorm` of ``norm`` (default the
+    config's ``spike_norm``), :class:`FoldedNorm` when ``cfg.fold_bn``
+    folds it, :class:`NoNorm` for None."""
+    norm = cfg.spike_norm if norm == "cfg" else norm
+    if norm is None:
+        return NoNorm()
+    if norm_is_folded(norm, cfg):
+        return FoldedNorm()
+    return SpikingNorm(channels, norm, cfg.num_steps, cfg.v_th)
 
 
 def folded(norm: nn.Module) -> bool:
-    """Whether a site's partner layer carries a bias for its folded norm."""
+    """Whether a site's partner linear carries a bias for its folded
+    norm."""
     return isinstance(norm, FoldedNorm)
 
 
-class SpikingNorm(nn.Module):
-    """``SpikingNorm(norm='BN')``: one TorchBatchNorm named like flax's
-    auto-named child."""
+def unnormed(norm: nn.Module) -> bool:
+    """Whether a site's partner conv carries a bias: its norm was folded
+    or there is none (JAX ``use_bias=norm is None or folded``)."""
+    return isinstance(norm, NoNorm)
 
-    def __init__(self, channels: int, norm: str = "BN"):
+
+def norm_spike(norm: nn.Module, sn: SpikingNeuron, x):
+    """``sn(norm(x))``: one fused pass where ``sn`` is a PSN and ``norm``
+    a per-channel affine (a running-statistics BN, a folded BN or none),
+    else the norm as its own pass."""
+    if sn.kind == "psn" and norm.fusable:
+        return sn(x, affine=norm.affine(x))
+    return sn(norm(x))
+
+
+class GroupNorm(nn.Module):
+    """flax ``GroupNorm(num_groups, epsilon=1e-5, reduction_axes=(-3, -2,
+    -1))`` on ``[..., H, W, C]``: per leading index and group over (H, W,
+    the group's channels), the variance as ``E[x^2] - E[x]^2`` (flax's
+    fast variance), in >= float32."""
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-5):
         super().__init__()
-        if norm != "BN":
-            raise NotImplementedError(f"norm {norm!r}: only BN is ported")
-        self.BatchNorm_0 = TorchBatchNorm(channels)
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        return self.BatchNorm_0(x)
+        cdt = torch.promote_types(x.dtype, torch.float32)
+        C = x.shape[-1]
+        xg = x.to(cdt).reshape(*x.shape[:-1], self.groups, C // self.groups)
+        axes = (-4, -3, -1)
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = ((xg * xg).mean(dim=axes, keepdim=True)
+               - mean * mean).clamp(min=0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.weight.to(cdt) + self.bias.to(cdt)).to(x.dtype)
+
+
+class SpikingNorm(nn.Module):
+    """The norm zoo over [T, B, H, W, C] (JAX ``SpikingNorm``,
+    ``spiking_layers.py:189-235``), children named like flax's:
+
+    - BN: one TorchBatchNorm ``BatchNorm_0`` over the (T, B)-flattened
+      batch; TDBN: the same with its scale initialised to ``alpha * v_th``;
+    - BNTT: a TorchBatchNorm ``bn_t{i}`` (eps 1e-4) per time step;
+    - BN_notrack: batch statistics in both modes, parameters ``scale`` and
+      ``bias`` (computed in >= float32; JAX computes in the input's dtype);
+    - GN / IN / LN: :class:`GroupNorm` ``GroupNorm_0`` with C // 16, C and 1
+      groups (eps 1e-5).
+    """
+
+    def __init__(self, channels: int, norm: str = "BN", num_steps: int = 10,
+                 v_th: float = 1.0, alpha: float = 1.0):
+        super().__init__()
+        if norm not in NORM_TYPES:
+            raise ValueError(f"unknown norm {norm!r}")
+        self.norm, self.num_steps = norm, num_steps
+        if norm in ("BN", "TDBN"):
+            self.BatchNorm_0 = TorchBatchNorm(
+                channels, scale_init=alpha * v_th if norm == "TDBN" else 1.0)
+        elif norm == "BNTT":
+            for i in range(num_steps):
+                self.add_module(f"bn_t{i}", TorchBatchNorm(channels,
+                                                           eps=1e-4))
+        elif norm == "BN_notrack":
+            self.scale = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            groups = {"GN": max(channels // 16, 1), "IN": channels,
+                      "LN": 1}[norm]
+            self.GroupNorm_0 = GroupNorm(channels, groups)
+
+    @property
+    def fusable(self) -> bool:
+        return self.norm in ("BN", "TDBN")
+
+    def forward(self, x):
+        if self.fusable:
+            return self.BatchNorm_0(x)
+        if self.norm == "BNTT":
+            return torch.stack([getattr(self, f"bn_t{i}")(x[i])
+                                for i in range(self.num_steps)])
+        if self.norm == "BN_notrack":
+            cdt = torch.promote_types(x.dtype, torch.float32)
+            xf = x.to(cdt)
+            var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
+                                       correction=0)
+            y = (xf - mean) / torch.sqrt(var + 1e-5) * self.scale.to(cdt) \
+                + self.bias.to(cdt)
+            return y.to(x.dtype)
+        return self.GroupNorm_0(x)
 
     def eval_affine(self):
         return self.BatchNorm_0.eval_affine()
@@ -210,42 +367,33 @@ def conv2d(in_channels, out_channels, kernel_size, stride=1, padding=None,
                   padding=padding, bias=bias)
 
 
-def require_bn(cfg: SpikingConfig):
-    if cfg.spike_norm != "BN":
-        raise NotImplementedError(
-            f"spike_norm {cfg.spike_norm!r}: only BN is ported")
-
-
 class SpikingConvEncoderLayer(nn.Module):
-    """SEW ordering: conv -> BN -> spike (BN and spike in one K2 pass)."""
+    """SEW ordering: conv -> norm -> spike."""
 
     def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
                  kernel_size=3, stride=1, padding=None):
         super().__init__()
-        require_bn(cfg)
         self.norm = spiking_norm(out_channels, cfg)
         self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, bias=folded(self.norm))
+                           padding, bias=unnormed(self.norm))
         self.sn = SpikingNeuron(cfg)
 
     def forward(self, x):
-        x = self.conv(x)
-        return self.sn(x, affine=self.norm.affine(x))
+        return norm_spike(self.norm, self.sn, self.conv(x))
 
 
 class MSSpikingConvEncoderLayer(nn.Module):
-    """MS ordering: spike -> conv -> BN; ``first_layer`` skips the spike."""
+    """MS ordering: spike -> conv -> norm; ``first_layer`` skips the spike."""
 
     def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
                  kernel_size=3, stride=1, padding=None, first_layer=False):
         super().__init__()
-        require_bn(cfg)
         self.first_layer = first_layer
         if not first_layer:
             self.sn = SpikingNeuron(cfg)
         self.norm = spiking_norm(out_channels, cfg)
         self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, bias=folded(self.norm))
+                           padding, bias=unnormed(self.norm))
 
     def forward(self, x):
         if not self.first_layer:
@@ -253,25 +401,96 @@ class MSSpikingConvEncoderLayer(nn.Module):
         return self.norm(self.conv(x))
 
 
-class MSSpikingTransposeDecoderLayer(nn.Module):
-    """MS transpose-conv decoder: spike -> deconv (x2) -> BN."""
+def _upsample(x, scale: int):
+    """Bilinear x``scale`` of [T, B, H, W, C] (one batched resize; the
+    reference loops over T)."""
+    return resize_bilinear(x, (x.shape[-3] * scale, x.shape[-2] * scale))
+
+
+class SpikingDecoderLayer(nn.Module):
+    """SEW decoder: bilinear x``scale`` upsample -> conv -> norm -> spike."""
 
     def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
                  kernel_size=3, scale=2):
         super().__init__()
-        require_bn(cfg)
-        if scale != 2:
-            raise NotImplementedError("only the x2 transpose decoder is "
-                                      "ported")
+        self.scale = scale
+        self.norm = spiking_norm(out_channels, cfg)
+        self.deconv = conv2d(in_channels, out_channels, kernel_size,
+                             bias=unnormed(self.norm))
+        self.sn = SpikingNeuron(cfg)
+
+    def forward(self, x):
+        return norm_spike(self.norm, self.sn,
+                          self.deconv(_upsample(x, self.scale)))
+
+
+class MSSpikingDecoderLayer(nn.Module):
+    """MS decoder: bilinear x2 upsample -> spike -> conv -> norm (x2
+    whatever ``scale``, as in JAX)."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 kernel_size=3, scale=2):
+        super().__init__()
         self.sn = SpikingNeuron(cfg)
         self.norm = spiking_norm(out_channels, cfg)
-        self.deconv = TorchConvTranspose(
-            in_channels, out_channels, kernel_size, stride=2,
-            padding=kernel_size // 2, output_padding=1,
-            bias=folded(self.norm))
+        self.deconv = conv2d(in_channels, out_channels, kernel_size,
+                             bias=unnormed(self.norm))
+
+    def forward(self, x):
+        return self.norm(self.deconv(self.sn(_upsample(x, 2))))
+
+
+def _transpose_conv(in_channels, out_channels, kernel_size, scale, norm):
+    """A decoder's x``scale`` transposed conv: ``kernel_size`` with padding
+    ``kernel_size // 2`` at x2, the reference's ConvTranspose2d(7, stride
+    4, padding 2) at x4, output_padding 1 in both."""
+    k, p = (kernel_size, kernel_size // 2) if scale == 2 else (7, 2)
+    return TorchConvTranspose(in_channels, out_channels, k, stride=scale,
+                              padding=p, output_padding=1,
+                              bias=unnormed(norm))
+
+
+class SpikingTransposeDecoderLayer(nn.Module):
+    """SEW transpose-conv decoder: deconv (x``scale``) -> norm -> spike."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 kernel_size=3, scale=2):
+        super().__init__()
+        self.norm = spiking_norm(out_channels, cfg)
+        self.deconv = _transpose_conv(in_channels, out_channels, kernel_size,
+                                      scale, self.norm)
+        self.sn = SpikingNeuron(cfg)
+
+    def forward(self, x):
+        return norm_spike(self.norm, self.sn, self.deconv(x))
+
+
+class MSSpikingTransposeDecoderLayer(nn.Module):
+    """MS transpose-conv decoder: spike -> deconv (x``scale``) -> norm."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 kernel_size=3, scale=2):
+        super().__init__()
+        self.sn = SpikingNeuron(cfg)
+        self.norm = spiking_norm(out_channels, cfg)
+        self.deconv = _transpose_conv(in_channels, out_channels, kernel_size,
+                                      scale, self.norm)
 
     def forward(self, x):
         return self.norm(self.deconv(self.sn(x)))
+
+
+class SpikingPredLayer(nn.Module):
+    """SEW prediction head: a bare conv (bias, no norm, no spike)."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 kernel_size=1):
+        super().__init__()
+        self.conv = conv2d(in_channels, out_channels, kernel_size, 1,
+                           kernel_size // 2, bias=True)
+
+    def forward(self, x):
+        return self.conv(x)
 
 
 class MSSpikingPredLayer(nn.Module):
@@ -288,45 +507,106 @@ class MSSpikingPredLayer(nn.Module):
         return self.conv(self.sn(x))
 
 
-class MSResBlock(nn.Module):
-    """Membrane-shortcut residual block: (spike -> conv -> BN) x2, ADD.
-    The norms are plain BN whatever the config (reference quirk)."""
+def _connect(out, identity, cnf: str, cfg: SpikingConfig):
+    """A residual block's join of its output and its input."""
+    if cnf == "ADD":
+        return out + identity
+    if cnf in ("MUL", "AND"):
+        return out * identity
+    if cnf == "OR":
+        return get_surrogate(cfg.surrogate, cfg.surrogate_alpha)(
+            out + identity)
+    if cnf == "NMUL":
+        return identity * (1.0 - out)
+    raise NotImplementedError(cnf)
+
+
+class _ResBlock(nn.Module):
+    """Two conv / BN / spike stages and the ``connect_function`` join. The
+    norms are plain BN whatever the config (a reference quirk), none if
+    ``spike_norm`` is None."""
 
     def __init__(self, channels, cfg: SpikingConfig,
                  connect_function: str = "ADD"):
         super().__init__()
-        require_bn(cfg)
-        if connect_function != "ADD":
-            raise NotImplementedError(
-                f"connect_function {connect_function!r}: only ADD is ported")
-        self.sn1 = SpikingNeuron(cfg)
-        self.norm1 = spiking_norm(channels, cfg, "BN")
-        self.conv1 = conv2d(channels, channels, 3, 1, 1,
-                            bias=folded(self.norm1))
-        self.sn2 = SpikingNeuron(cfg)
-        self.norm2 = spiking_norm(channels, cfg, "BN")
-        self.conv2 = conv2d(channels, channels, 3, 1, 1,
-                            bias=folded(self.norm2))
+        self.cfg, self.connect_function = cfg, connect_function
+        norm = None if cfg.spike_norm is None else "BN"
+        for i in (1, 2):
+            n = spiking_norm(channels, cfg, norm)
+            self.add_module(f"sn{i}", SpikingNeuron(cfg))
+            self.add_module(f"norm{i}", n)
+            self.add_module(f"conv{i}", conv2d(channels, channels, 3, 1, 1,
+                                               bias=unnormed(n)))
+
+    def join(self, out, identity):
+        return _connect(out, identity, self.connect_function, self.cfg)
+
+
+class SEWResBlock(_ResBlock):
+    """Spike-element-wise residual block: (conv -> BN -> spike) x2, then the
+    join (the BN and the spike one fused site each)."""
+
+    def forward(self, x):
+        y = norm_spike(self.norm1, self.sn1, self.conv1(x))
+        y = norm_spike(self.norm2, self.sn2, self.conv2(y))
+        return self.join(y, x)
+
+
+class MSResBlock(_ResBlock):
+    """Membrane-shortcut residual block: (spike -> conv -> BN) x2, then the
+    join."""
 
     def forward(self, x):
         y = self.norm1(self.conv1(self.sn1(x)))
         y = self.norm2(self.conv2(self.sn2(y)))
-        return y + x
+        return self.join(y, x)
 
 
 class SpikingResidualStack(nn.Module):
-    """``num_blocks`` MS residual blocks named ``res{i}``."""
+    """``num_blocks`` residual blocks (MS or SEW) named ``res{i}``."""
 
-    def __init__(self, channels, cfg: SpikingConfig, num_blocks=2):
+    def __init__(self, channels, cfg: SpikingConfig, num_blocks=4,
+                 use_ms=False, connect_function: str = "ADD"):
         super().__init__()
         self.num_blocks = num_blocks
+        block = MSResBlock if use_ms else SEWResBlock
         for i in range(num_blocks):
-            self.add_module(f"res{i}", MSResBlock(channels, cfg))
+            self.add_module(f"res{i}", block(channels, cfg,
+                                             connect_function))
 
     def forward(self, x):
         for i in range(self.num_blocks):
             x = getattr(self, f"res{i}")(x)
         return x
+
+
+def _embed_norm(out_channels, cfg: SpikingConfig, use_norm: bool = True):
+    """The embedding layers' norm: a plain TorchBatchNorm whatever the
+    config (foldable), none without ``spike_norm``."""
+    if not use_norm or cfg.spike_norm is None:
+        return NoNorm()
+    return FoldedNorm() if cfg.fold_bn else TorchBatchNorm(out_channels)
+
+
+class SpikingEmbeddingLayer(nn.Module):
+    """Patch-embedding conv (stride = the spatial patch, padding 1) with a
+    plain BN: SEW conv -> BN -> spike (one fused site), MS spike -> conv
+    -> BN."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 stride=(2, 2), kernel_size=3, use_ms=False, use_norm=True):
+        super().__init__()
+        self.use_ms = use_ms
+        self.norm = _embed_norm(out_channels, cfg, use_norm)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size,
+                           stride=tuple(stride), padding=1,
+                           bias=unnormed(self.norm))
+        self.sn = SpikingNeuron(cfg)
+
+    def forward(self, x):
+        if self.use_ms:
+            return self.norm(self.conv(self.sn(x)))
+        return norm_spike(self.norm, self.sn, self.conv(x))
 
 
 class SpikingPEDLayer(nn.Module):
@@ -336,17 +616,14 @@ class SpikingPEDLayer(nn.Module):
     def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
                  stride=(2, 2), kernel_size=3):
         super().__init__()
-        require_bn(cfg)
-        # conv_res has no norm of its own: it keeps no bias when folded
+        # conv_res has no norm of its own: its bias stays tied to the config
         self.conv_res = Conv2d(in_channels, out_channels, 1, stride=2,
-                               padding=0, bias=False)
+                               padding=0, bias=cfg.spike_norm is None)
         self.sn = SpikingNeuron(cfg)
-        # a plain TorchBatchNorm whatever the config: foldable
-        self.norm = FoldedNorm() if cfg.fold_bn else TorchBatchNorm(
-            out_channels)
+        self.norm = _embed_norm(out_channels, cfg)
         self.conv = Conv2d(in_channels, out_channels, kernel_size,
                            stride=tuple(stride), padding=1,
-                           bias=folded(self.norm))
+                           bias=unnormed(self.norm))
 
     def forward(self, x):
         return self.norm(self.conv(self.sn(x))) + self.conv_res(x)

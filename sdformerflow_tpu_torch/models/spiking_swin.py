@@ -1,33 +1,48 @@
-"""Spiking 3D shifted-window transformer, the MS (SDformerFlow) subset of
-``sdformerflow_tpu/models/spiking_swin.py``, in eval and train mode.
+"""Spiking 3D shifted-window transformer, a mirror of
+``sdformerflow_tpu/models/spiking_swin.py`` (SEW and MS blocks), in eval
+and train mode.
 
-Stages run time-major ``[D, B, H, W, C]``. The attention is the spiking-QK
-window attention in the JAX package's forms, picked by its condition. At an
-even window count, in eval mode the pair-local interior is K1
-(``ops/hopper_attn.py``) for a CUDA tensor, its plain twin for a CPU
-tensor; K1 has no backward (nor has the Pallas kernel it replaces), so
-train mode runs the pair-local module form
-(``spiking_swin.py:330-358,371-376``). At an odd window count both modes
-run the raw-refold module form (``:360-370``). The module forms' PSN sites
-are fused PSN sites (K2/K2b) like every other. Reference quirks kept: raw
-row-major refolds in the window partition and in the raw-refold attention,
-the shift mask ignored by the QK attention, drop-path on the attention
-branch only.
+Stages run time-major ``[D, B, H, W, C]``; the attention works on time-major
+windows ``[wd, B_, wh, ww, C]``, and every neuron inside it runs at
+``num_steps = wd`` (the clamped temporal window).
 
-Under ``cfg.fold_bn`` the q/k branches, the MLP, the patch merging and
-``proj_bn`` lose their BN and their linears gain a bias, as in JAX. JAX
-also turns its fused attention off there (``spiking_swin.py:323-328``),
-because its kernel applies the BN affine itself; the port keeps K1, whose
-affine then is the unit scale with the folded bias as the shift
-(:meth:`SpikingQKWindowAttention3D.kernel_params`): the same function.
+- MS blocks (the SDformerFlow path): the spiking-QK window attention in the
+  JAX package's forms, picked by its condition. At a temporal window of 2
+  and an even window count: in eval mode, for a PSN with running-statistics
+  BN, the pair-local interior is K1 (``ops/hopper_attn.py``) for a CUDA
+  tensor, its plain twin for a CPU tensor; else (train mode - K1 has no
+  backward, nor has the Pallas kernel it replaces - or another neuron or
+  norm) the pair-local module form (``spiking_swin.py:330-358,371-376``).
+  Elsewhere (an odd window count, a temporal window other than 2) both modes
+  run the raw-refold module form (``:360-370``). The shift mask is ignored,
+  as in the reference.
+- SEW blocks: the spiking BN window attention (q, k and v branches, swin-v1
+  ``q kᵀ`` with the relative-position bias table and no softmax, or swin-v2
+  Hamming similarity with softmax, ``logit_scale`` and the cpb MLP), which
+  applies the shift mask; its products are ``torch.matmul``, as JAX computes
+  them outside any Pallas kernel.
+
+Every PSN site after a running-statistics BN is a fused K2 / K2b site
+(``models/spiking_layers.py:norm_spike``). Reference quirks kept: raw
+row-major refolds in the window partition and in the attention, drop-path
+on the attention branch only, swin-v1 scale 1 for psn / glif neurons.
+
+Under ``cfg.fold_bn`` the foldable BN sites lose their BN and their linears
+gain a bias, as in JAX. JAX also turns its fused attention off there
+(``spiking_swin.py:323-328``), because its kernel applies the BN affine
+itself; the port keeps K1, whose affine then is the unit scale with the
+folded bias as the shift (:meth:`SpikingQKWindowAttention3D.kernel_params`):
+the same function.
 
 A torch module owns its parameters at construction, so each block is built
 for the stage resolution the config implies (the clamped window decides the
-positional encoding's shape, as the flax module decided it from its input);
-a block called on another resolution raises.
+positional encoding's shape and the shift mask, as the flax module decided
+them from its input); a block called on another resolution raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -36,18 +51,38 @@ import torch.nn.functional as F
 from ..ops import windows as W
 from ..ops.hopper_attn import QKAttnParams, fused_qk_attention
 from .common import SpikingConfig
-from .spiking_layers import (SpikingNeuron, drop_path, folded, require_bn,
-                             spiking_norm)
+from .spiking_layers import (NoNorm, SpikingNeuron, SpikingNorm, drop_path,
+                             folded, norm_spike, spiking_norm)
+
+# norms a linear -> norm -> spike branch applies (others: no norm there)
+_BN_FAMILY = ("BN", "BNTT", "tdBN", "TDBN", "IN")
 
 
-class _QKBranch(nn.Module):
-    """linear (no bias; with the folded BN's bias under ``cfg.fold_bn``) ->
-    BN -> PSN, with the optional pre-spike positional encoding of k stored
-    in the reference layout (1, nh, N, hd)."""
+def branch_norm(dim, cfg: SpikingConfig, norm):
+    """The norm after a linear of the attention, the MLP: a norm of
+    ``_BN_FAMILY`` (or its fold), else none (the linear then has no
+    bias)."""
+    if norm in _BN_FAMILY:
+        return spiking_norm(dim, cfg, norm)
+    return NoNorm()
 
-    def __init__(self, dim, cfg: SpikingConfig, pe_shape=None):
+
+def pre_norm(dim, cfg: SpikingConfig, norm):
+    """The LN / GN pre-norm of a block or an MLP (JAX ``norm1``,
+    ``pre_norm``), or None."""
+    if norm in ("LN", "GN"):
+        return SpikingNorm(dim, norm, cfg.num_steps, cfg.v_th)
+    return None
+
+
+class _QKVBranch(nn.Module):
+    """linear (bias only with a folded BN) -> norm -> spike, with the
+    optional pre-spike positional encoding of k stored in the reference
+    layout (1, nh, N, hd)."""
+
+    def __init__(self, dim, cfg: SpikingConfig, norm, pe_shape=None):
         super().__init__()
-        self.bn = spiking_norm(dim, cfg)
+        self.bn = branch_norm(dim, cfg, norm)
         self.linear = nn.Linear(dim, dim, bias=folded(self.bn))
         if pe_shape is not None:
             self.positional_encoding = nn.Parameter(torch.zeros(pe_shape))
@@ -57,41 +92,47 @@ class _QKBranch(nn.Module):
         """The branch's spikes on time-major windows [T, B_, wh, ww, C]."""
         y = self.linear(x)
         if not hasattr(self, "positional_encoding"):
-            return self.sn(y, affine=self.bn.affine(y))
+            return norm_spike(self.bn, self.sn, y)
         T, _, H, Wd, C = y.shape
         y = self.bn(y) + self.positional_encoding.reshape(T, 1, H, Wd, C)
         return self.sn(y)
 
 
+def _refold_out(attn_v, T, Hw, Ww, C):
+    """(B_, nh, N, hd) -> [T, B_, wh, ww, C] (the reference's refold)."""
+    B_, nh, _, hd = attn_v.shape
+    out = attn_v.reshape(B_, nh, T, Hw, Ww, hd).permute(2, 0, 3, 4, 1, 5)
+    return out.reshape(T, B_, Hw, Ww, C)
+
+
 class SpikingQKWindowAttention3D(nn.Module):
     """Linear-complexity spiking QK attention on time-major windows
-    [2, B_, wh, ww, C], PSN and BN, temporal window 2 (anything else raises
-    NotImplementedError). The form follows the JAX module's condition
-    (``spiking_swin.py:323-331``): at an even window count K1 in eval and
-    the pair-local form in train; at an odd one the raw-refold form in
-    both."""
+    [wd, B_, wh, ww, C]: ``attn_token = spike(sum_c q)``, ``attn = k *
+    attn_token``, no softmax, no mask. The form follows the JAX module's
+    condition (``spiking_swin.py:323-331``): at wd == 2 and an even window
+    count K1 in eval (PSN and running-statistics BN) and the pair-local
+    form otherwise; elsewhere the raw-refold form in both modes."""
 
-    def __init__(self, dim, window_size, num_heads, cfg: SpikingConfig):
+    def __init__(self, dim, window_size, num_heads, cfg: SpikingConfig,
+                 norm="BN"):
         super().__init__()
-        require_bn(cfg)
-        if window_size[0] != 2:
-            raise NotImplementedError(
-                f"temporal window {window_size[0]}: only wd == 2 is ported")
-        if cfg.neuron_type.lower() != "psn":
-            raise NotImplementedError("only PSN neurons are ported")
         self.dim, self.num_heads = dim, num_heads
         acfg = cfg.replace(num_steps=window_size[0])
         n_all = window_size[0] * window_size[1] * window_size[2]
         self.proj_sn = SpikingNeuron(acfg)
-        self.q = _QKBranch(dim, acfg)
-        self.k = _QKBranch(dim, acfg,
-                           pe_shape=(1, num_heads, n_all, dim // num_heads))
+        self.q = _QKVBranch(dim, acfg, norm)
+        self.k = _QKVBranch(dim, acfg, norm,
+                            pe_shape=(1, num_heads, n_all, dim // num_heads))
         self.sn2_q = SpikingNeuron(acfg)
         # attention-telemetry neuron: kept so weights carry across one to
-        # one; the eval forward never fires it (as in the fused JAX path)
+        # one; no form fires it (as in the fused JAX path)
         self.attn_sn = SpikingNeuron(acfg)
         self.proj = nn.Linear(dim, dim, bias=True)
-        self.proj_bn = spiking_norm(dim, acfg)
+        self.proj_bn = branch_norm(dim, acfg, norm)
+        # K1 takes a PSN and each BN site's per-channel affine
+        self.kernel_ok = acfg.neuron_type.lower() == "psn" and all(
+            folded(n) or (isinstance(n, SpikingNorm) and n.fusable)
+            for n in (self.q.bn, self.k.bn, self.proj_bn))
 
     def kernel_params(self) -> QKAttnParams:
         """K1's parameters: each BN site's eval affine or, where folding
@@ -116,14 +157,15 @@ class SpikingQKWindowAttention3D(nn.Module):
             w_t=self.sn2_q.weight, b_t=self.sn2_q.bias,
             wp=self.proj.weight.t(), bp=self.proj.bias, ap=ap, cp=cp)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
+        del mask  # reference quirk: the shift mask is ignored in this path
         T, B_, Hw, Ww, C = x.shape
-        if B_ % 2:
+        if T != 2 or B_ % 2:
             return self._raw_refold(x)
-        if not self.training:
+        if not self.training and self.kernel_ok:
             return fused_qk_attention(x, self.kernel_params(), self.num_heads)
-        # train: the pair-local module form; attn_sn is not fired (its
-        # output never reaches the loss, so its grads stay None)
+        # the pair-local module form; attn_sn is not fired (its output
+        # never reaches the loss, so its grads stay None)
         nh = self.num_heads
         hd = C // nh
         x = self.proj_sn(x)
@@ -141,10 +183,10 @@ class SpikingQKWindowAttention3D(nn.Module):
 
     def _raw_refold(self, x):
         """The reference's raw-refold form (``spiking_swin.py:360-370``),
-        the JAX package's branch at an odd window count, in eval and in
-        train: q keeps its time axis, k folds time into tokens, and the
-        row-major refolds scramble heads as the reference does. attn_sn is
-        not fired, as in the other forms."""
+        the JAX package's branch at an odd window count or a temporal window
+        other than 2, in eval and in train: q keeps its time axis, k folds
+        time into tokens, and the row-major refolds scramble heads as the
+        reference does. attn_sn is not fired, as in the other forms."""
         T, B_, Hw, Ww, C = x.shape
         nh = self.num_heads
         hd = C // nh
@@ -153,65 +195,191 @@ class SpikingQKWindowAttention3D(nn.Module):
         k = self.k(x).reshape(B_, nh, -1, hd)
         att = self.sn2_q(q.sum(-1, keepdim=True))     # [T, B_, nh, HW, 1]
         attn = k * att.reshape(B_, nh, -1, 1)         # [B_, nh, T HW, hd]
-        out = attn.reshape(B_, nh, T, Hw, Ww, hd).permute(2, 0, 3, 4, 1, 5)
-        out = out.reshape(T, B_, Hw, Ww, C)
-        return self.proj_bn(self.proj(out))
+        return self.proj_bn(self.proj(_refold_out(attn, T, Hw, Ww, C)))
+
+
+class SpikingBNWindowAttention3D(nn.Module):
+    """SEW window attention on time-major windows [wd, B_, wh, ww, C]
+    (JAX ``spiking_swin.py:84-168``): q, k and v branches (linear -> norm
+    -> spike at ``num_steps = wd``) and the raw ``(T, B_, H, W, C) -> (B_,
+    nh, N, hd)`` refold; swin-v1 ``(q * scale) kᵀ`` plus the
+    relative-position bias (scale 1 for psn / glif, else ``qk_scale`` or
+    ``hd ** -0.5``; no softmax), swin-v2 the Hamming similarity
+    ``0.5 (1 + (2q - 1)(2k - 1)ᵀ / hd)``, softmax, times ``exp(min(
+    logit_scale, log 100))``, plus ``16 sigmoid`` of the cpb MLP's bias;
+    then the shift mask, ``attn @ v``, proj -> norm -> spike. Not ported:
+    JAX's SDSA switches ``spike_input`` / ``spike_output``, which no model
+    sets."""
+
+    def __init__(self, dim, window_size, num_heads, cfg: SpikingConfig,
+                 version="swinv1", qk_scale=None,
+                 pretrained_window_size=(0, 0, 0), norm="BN"):
+        super().__init__()
+        if version not in ("swinv1", "swinv2"):
+            raise ValueError(f"unknown swin version {version!r}")
+        self.dim, self.num_heads, self.version = dim, num_heads, version
+        self.window_size = tuple(window_size)
+        hd = dim // num_heads
+        if cfg.neuron_type.lower() in ("psn", "glif"):
+            self.scale = 1.0
+        else:
+            self.scale = qk_scale or hd ** -0.5
+        acfg = cfg.replace(num_steps=window_size[0])
+        self.q = _QKVBranch(dim, acfg, norm)
+        self.k = _QKVBranch(dim, acfg, norm)
+        self.v = _QKVBranch(dim, acfg, norm)
+        self.register_buffer("rel_idx", torch.from_numpy(
+            W.relative_position_index(self.window_size)), persistent=False)
+        if version == "swinv1":
+            n_rel = math.prod(2 * w - 1 for w in self.window_size)
+            self.relative_position_bias_table = nn.Parameter(
+                torch.zeros(n_rel, num_heads))
+        else:
+            self.logit_scale = nn.Parameter(
+                torch.full((num_heads, 1, 1), math.log(10.0)))
+            self.cpb_fc1 = nn.Linear(3, 512, bias=True)
+            self.cpb_fc2 = nn.Linear(512, num_heads, bias=False)
+            self.register_buffer("coords", torch.from_numpy(
+                W.relative_coords_table(self.window_size,
+                                        tuple(pretrained_window_size))),
+                persistent=False)
+        self.proj = nn.Linear(dim, dim, bias=True)
+        self.proj_bn = branch_norm(dim, acfg, norm)
+        self.proj_sn = SpikingNeuron(acfg)
+
+    def position_bias(self, n: int, dtype) -> torch.Tensor:
+        """[nh, n, n]: the v1 table's rows, or 16 sigmoid of the cpb MLP."""
+        nh = self.num_heads
+        if self.version == "swinv1":
+            idx = self.rel_idx[:n, :n].reshape(-1)
+            bias = self.relative_position_bias_table[idx].reshape(n, n, nh)
+            return bias.permute(2, 0, 1).to(dtype)
+        w1 = self.cpb_fc1.weight
+        h = F.relu(F.linear(self.coords.to(w1.dtype), w1, self.cpb_fc1.bias))
+        cpb = F.linear(h, self.cpb_fc2.weight).reshape(-1, nh)
+        nw = self.rel_idx.shape[0]
+        bias = cpb[self.rel_idx.reshape(-1)].reshape(nw, nw, nh)
+        return (16.0 * torch.sigmoid(bias.permute(2, 0, 1))).to(dtype)
+
+    def forward(self, x, mask=None):
+        T, B_, Hw, Ww, C = x.shape
+        nh = self.num_heads
+        hd = C // nh
+        q = self.q(x).reshape(B_, nh, -1, hd)
+        k = self.k(x).reshape(B_, nh, -1, hd)
+        v = self.v(x).reshape(B_, nh, -1, hd)
+        N = q.shape[2]
+        if self.version == "swinv1":
+            attn = (q * self.scale) @ k.transpose(-2, -1)
+        else:
+            ham = 0.5 * (1.0 + (2 * q - 1) @ (2 * k - 1).transpose(-2, -1)
+                         / hd)
+            attn = ham.softmax(dim=-1)
+            attn = attn * torch.exp(self.logit_scale.clamp(
+                max=math.log(100.0))).to(attn.dtype)
+        attn = attn + self.position_bias(N, attn.dtype)[None]
+        if mask is not None:
+            nW = mask.shape[0]
+            attn = attn.reshape(B_ // nW, nW, nh, N, N) \
+                + mask.to(attn.dtype)[None, :, None]
+            attn = attn.reshape(-1, nh, N, N)
+        out = self.proj(_refold_out(attn @ v, T, Hw, Ww, C))
+        return norm_spike(self.proj_bn, self.proj_sn, out)
 
 
 class SpikingMlp(nn.Module):
-    """MS MLP: spike -> fc1 -> BN -> spike -> fc2 -> BN (the middle BN and
-    spike run as one K2 pass)."""
+    """The spiking MLP on time-major [T, B, H, W, C], with the LN / GN
+    ``pre_norm`` first. SEW: (fc -> norm -> spike) x2; MS: spike -> fc1 ->
+    norm -> spike -> fc2 -> norm. Each norm -> spike pair is one site."""
 
-    def __init__(self, dim, hidden_dim, cfg: SpikingConfig):
+    def __init__(self, dim, hidden_dim, cfg: SpikingConfig, norm="BN",
+                 ms=True):
         super().__init__()
-        require_bn(cfg)
+        self.ms = ms
+        self.pre_norm = pre_norm(dim, cfg, norm)
         self.sn1 = SpikingNeuron(cfg)
-        self.bn1 = spiking_norm(hidden_dim, cfg)
+        self.bn1 = branch_norm(hidden_dim, cfg, norm)
         self.fc1 = nn.Linear(dim, hidden_dim, bias=folded(self.bn1))
         self.sn2 = SpikingNeuron(cfg)
-        self.bn2 = spiking_norm(dim, cfg)
+        self.bn2 = branch_norm(dim, cfg, norm)
         self.fc2 = nn.Linear(hidden_dim, dim, bias=folded(self.bn2))
 
     def forward(self, x):
-        x = self.fc1(self.sn1(x))
-        x = self.sn2(x, affine=self.bn1.affine(x))
-        return self.bn2(self.fc2(x))
+        if self.pre_norm is not None:
+            x = self.pre_norm(x)
+        if self.ms:
+            x = norm_spike(self.bn1, self.sn2, self.fc1(self.sn1(x)))
+            return self.bn2(self.fc2(x))
+        x = norm_spike(self.bn1, self.sn1, self.fc1(x))
+        return norm_spike(self.bn2, self.sn2, self.fc2(x))
+
+
+def _sew(x, y, cnf: str):
+    """A block's residual join."""
+    if cnf == "ADD":
+        return x + y
+    if cnf == "AND":
+        return x * y
+    if cnf == "IAND":
+        return x * (1.0 - y)
+    raise NotImplementedError(cnf)
 
 
 class SpikingSwinBlock3D(nn.Module):
-    """MS block: QK window attention + MS MLP, SEW "ADD" joins, on
-    time-major [D, B, H, W, C] at ``input_resolution`` = (D, H, W). In
-    train mode the attention branch takes drop-path at ``drop_path_rate``,
-    drawn from ``drop_path_generator`` (None: torch's default generator of
-    the input's device)."""
+    """One spiking swin block on time-major [D, B, H, W, C] at
+    ``input_resolution`` = (D, H, W): window attention (MS: QK; SEW: BN
+    window attention with the shift mask) and the MLP, each joined by
+    ``cnf``. In train mode the attention branch takes drop-path at
+    ``drop_path_rate``, drawn from ``drop_path_generator`` (None: torch's
+    default generator of the input's device)."""
 
     def __init__(self, dim, num_heads, cfg: SpikingConfig, input_resolution,
                  window_size=(2, 7, 7), shift_size=(0, 0, 0), mlp_ratio=4.0,
-                 drop_path_rate=0.0):
+                 version="swinv1", qk_scale=None,
+                 pretrained_window_size=(0, 0, 0), norm="BN",
+                 drop_path_rate=0.0, ms=True, cnf="ADD"):
         super().__init__()
-        self.drop_path_rate = drop_path_rate
+        self.drop_path_rate, self.cnf = drop_path_rate, cnf
         self.drop_path_generator = None
         self.input_resolution = tuple(input_resolution)
         self.window_size, self.shift_size = W.get_window_size(
             self.input_resolution, window_size, shift_size)
-        self.attn = SpikingQKWindowAttention3D(dim, self.window_size,
-                                               num_heads, cfg)
-        self.mlp = SpikingMlp(dim, int(dim * mlp_ratio), cfg)
+        self.norm1 = pre_norm(dim, cfg, norm)
+        if ms:
+            self.attn = SpikingQKWindowAttention3D(dim, self.window_size,
+                                                   num_heads, cfg, norm)
+        else:
+            self.attn = SpikingBNWindowAttention3D(
+                dim, self.window_size, num_heads, cfg, version=version,
+                qk_scale=qk_scale,
+                pretrained_window_size=pretrained_window_size, norm=norm)
+        self.shifted = any(s > 0 for s in self.shift_size)
+        if self.shifted and not ms:
+            D, H, Wd = self.input_resolution
+            ws = self.window_size
+            padded = [-(-n // w) * w for n, w in zip((D, H, Wd), ws)]
+            self.register_buffer("attn_mask", torch.from_numpy(
+                W.compute_mask(*padded, ws, self.shift_size)),
+                persistent=False)
+        self.mlp = SpikingMlp(dim, int(dim * mlp_ratio), cfg, norm=norm,
+                              ms=ms)
 
     def _ssa(self, x):
         D, B, H, Wd, C = x.shape
         if (D, H, Wd) != self.input_resolution:
             raise ValueError(f"block built for {self.input_resolution}, got "
                              f"{(D, H, Wd)}")
+        if self.norm1 is not None:
+            x = self.norm1(x)
         ws, ss = self.window_size, self.shift_size
         x, _ = W.pad_to_windows_tm(x, ws)
         Dp, _, Hp, Wp, _ = x.shape
-        shifted = any(s > 0 for s in ss)
-        if shifted:
+        if self.shifted:
             x = torch.roll(x, (-ss[0], -ss[1], -ss[2]), dims=(0, 2, 3))
-        y = self.attn(W.window_partition_v2_tm(x, ws))
+        y = self.attn(W.window_partition_v2_tm(x, ws),
+                      getattr(self, "attn_mask", None))
         y = W.window_reverse_tm(y, ws, B, Dp, Hp, Wp)
-        if shifted:
+        if self.shifted:
             y = torch.roll(y, ss, dims=(0, 2, 3))
         return y[:D, :, :H, :Wd, :]
 
@@ -220,18 +388,22 @@ class SpikingSwinBlock3D(nn.Module):
         if self.training and self.drop_path_rate > 0.0:
             y = drop_path(y, self.drop_path_rate,
                           generator=self.drop_path_generator)
-        x = y + x
-        return self.mlp(x) + x  # no drop-path on the MLP branch
+        x = _sew(y, x, self.cnf)
+        # no drop-path on the MLP branch (reference parity)
+        return _sew(self.mlp(x), x, self.cnf)
 
 
 class SpikingPatchMerging(nn.Module):
-    """MS merge: 2x2 space-to-channel -> spike -> Linear 4C -> 2C -> BN."""
+    """2x2 space-to-channel, Linear 4C -> 2C, norm and spike on time-major
+    [D, B, H, W, C]. SEW: reduce -> norm -> spike (one site); MS: spike ->
+    reduce -> norm. The norm is the config's kind (any), the linear has a
+    bias only when it is folded."""
 
-    def __init__(self, dim, cfg: SpikingConfig):
+    def __init__(self, dim, cfg: SpikingConfig, norm="BN", ms=True):
         super().__init__()
-        require_bn(cfg)
+        self.ms = ms
         self.sn = SpikingNeuron(cfg)
-        self.norm = spiking_norm(2 * dim, cfg)
+        self.norm = spiking_norm(2 * dim, cfg, norm)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=folded(self.norm))
 
     def forward(self, x):
@@ -240,17 +412,21 @@ class SpikingPatchMerging(nn.Module):
             x = F.pad(x, (0, 0, 0, Wd % 2, 0, H % 2))
         x = torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
                        x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=-1)
-        return self.norm(self.reduction(self.sn(x)))
+        if self.ms:
+            return self.norm(self.reduction(self.sn(x)))
+        return norm_spike(self.norm, self.sn, self.reduction(x))
 
 
 class SpikingSwinStage(nn.Module):
-    """``depth`` MS blocks (alternating shift, block i at drop-path rate
+    """``depth`` blocks (alternating shift, block i at drop-path rate
     ``drop_path_rates[i]``, 0 past its end) + optional merge; returns
     (downsampled, pre-merge features)."""
 
     def __init__(self, dim, depth, num_heads, cfg: SpikingConfig,
                  input_resolution, window_size=(2, 7, 7), mlp_ratio=4.0,
-                 drop_path_rates=(), downsample=True):
+                 version="swinv1", qk_scale=None,
+                 pretrained_window_size=(0, 0, 0), norm="BN",
+                 drop_path_rates=(), downsample=True, ms=True):
         super().__init__()
         self.depth = depth
         shift = tuple(w // 2 for w in window_size)
@@ -259,11 +435,13 @@ class SpikingSwinStage(nn.Module):
                 dim, num_heads, cfg, input_resolution,
                 window_size=window_size,
                 shift_size=(0, 0, 0) if i % 2 == 0 else shift,
-                mlp_ratio=mlp_ratio,
+                mlp_ratio=mlp_ratio, version=version, qk_scale=qk_scale,
+                pretrained_window_size=pretrained_window_size, norm=norm,
                 drop_path_rate=(drop_path_rates[i]
-                                if i < len(drop_path_rates) else 0.0)))
+                                if i < len(drop_path_rates) else 0.0),
+                ms=ms))
         if downsample:
-            self.downsample = SpikingPatchMerging(dim, cfg)
+            self.downsample = SpikingPatchMerging(dim, cfg, norm=norm, ms=ms)
 
     def forward(self, x):
         for i in range(self.depth):

@@ -1,14 +1,18 @@
 """Eval-time BatchNorm folding, a mirror of
 ``sdformerflow_tpu/training/bn_folding.py`` on the port's module tree.
 
-At inference every running-statistics BN is the per-channel affine
-``y = a * x + b``, ``a = weight / sqrt(var + eps)``,
+At inference every running-statistics BN (BN, TDBN) is the per-channel
+affine ``y = a * x + b``, ``a = weight / sqrt(var + eps)``,
 ``b = bias - mean * a``. Every foldable BN of the zoo directly follows a
 conv, linear or transposed conv (SEW: conv -> BN -> spike; MS: spike ->
 conv -> BN), so the affine folds exactly into that layer: its weight scaled
 along the output channels, its bias ``bias * a + b`` (``b`` where it had
-none). The folded model skips the BN site (``FoldedNorm``), and a fused
-BN -> PSN site runs K2 with no affine.
+none). BNTT (per-step statistics), BN_notrack (batch statistics in eval
+too) and GN / IN / LN are no such affine and stay, as JAX's
+``_FOLDABLE_NORMS`` leaves them; the residual blocks' and embedding
+layers' plain BN folds whatever the config's norm. The folded model skips
+the BN site (``FoldedNorm``), and a fused BN -> PSN site runs K2 with no
+affine.
 
 Usage: ``model_f = fold_model(model)``; ``model_f`` evaluates as ``model``
 in eval mode does, up to rounding, and loads the state_dict of a model

@@ -8,10 +8,13 @@ The port's module tree has the flax tree's names, so a flax leaf at
 - Conv kernel HWIO -> OIHW;
 - transposed-conv kernel ``(kh, kw, I, O)`` -> ``(I, O, kh, kw)``;
 - BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
-- LayerNorm and GroupNorm (the ANN's instance norm) scale/bias ->
-  weight/bias;
-- PSN weight [T, T] / bias [T, 1], positional encodings, the ANN's
-  relative-position-bias tables and ``logit_scale`` pass through.
+- LayerNorm and GroupNorm (the ANN's instance norm, the SNN's GN / IN /
+  LN ``GroupNorm_0``) scale/bias -> weight/bias;
+- PSN weight [T, T] / bias [T, 1], PLIF ``w``, positional encodings,
+  relative-position-bias tables, ``logit_scale``, BN_notrack's
+  ``scale`` / ``bias`` and BNTT's ``bn_t{i}`` (BNs) pass through, and the
+  GLIF ``glif`` leaf, a ``GLIFParams`` named tuple, becomes one entry per
+  field (``glif.alpha``, ...).
 
 Input: ``{"params": ..., "batch_stats": ...}`` as nested mappings of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, variables)``). Any leaf with
@@ -27,7 +30,8 @@ import torch
 import torch.nn as nn
 
 from ..models.ann_layers import InstanceNorm
-from ..models.spiking_layers import Conv2d, TorchBatchNorm, TorchConvTranspose
+from ..models.spiking_layers import (Conv2d, GroupNorm, TorchBatchNorm,
+                                     TorchConvTranspose)
 
 _BN_NAMES = {("params", "scale"): "weight", ("params", "bias"): "bias",
              ("batch_stats", "mean"): "running_mean",
@@ -36,6 +40,8 @@ _BN_NAMES = {("params", "scale"): "weight", ("params", "bias"): "bias",
 
 def _leaves(tree, prefix=()):
     for key, val in tree.items():
+        if hasattr(val, "_asdict"):       # a named tuple (GLIFParams)
+            val = val._asdict()
         if isinstance(val, Mapping):
             yield from _leaves(val, prefix + (key,))
         else:
@@ -55,7 +61,7 @@ def _convert(module: nn.Module, coll: str, leaf: str, arr: np.ndarray):
         return None if name is None else (name, arr)
     if coll != "params":
         return None
-    if isinstance(module, (nn.LayerNorm, InstanceNorm)):
+    if isinstance(module, (nn.LayerNorm, InstanceNorm, GroupNorm)):
         name = {"scale": "weight", "bias": "bias"}.get(leaf)
         return None if name is None else (name, arr)
     if leaf == "kernel":
@@ -63,7 +69,8 @@ def _convert(module: nn.Module, coll: str, leaf: str, arr: np.ndarray):
             if isinstance(module, cls):
                 return "weight", layout(arr)
         return None
-    # conv/linear/PSN bias, PSN weight, positional encoding: same name
+    # conv/linear/PSN bias, PSN weight, PLIF w, GLIF fields, positional
+    # encoding, bias tables, logit_scale, BN_notrack scale: same name
     return leaf, arr
 
 

@@ -1,7 +1,8 @@
 """Checkpoints under the reference's state_dict names -> the port, and
 back: the port's own copy of the rules of
 ``sdformerflow_tpu/training/torch_interop.py``, for the SNN
-(``MS_SpikingformerFlowNet*``), the ANN STTFlowNet family and the ANN
+(``SpikingformerFlowNet``, ``MS_SpikingformerFlowNet*``), the spiking
+U-Net (``SpikingMultiResUNet``), the ANN STTFlowNet family and the ANN
 MultiResUNet; the family is chosen from the model.
 
 A rule maps a reference key (the module tree of
@@ -23,8 +24,11 @@ reference's layouts (``from_jax`` undoes each rule's transform) but for
 the STT projections (Linear [O, I] for the reference's [O, I, 1, 1]), so
 ``to_reference_state_dict``, the inverse, renames and restores those.
 
-The ANN rules cover the ``PatchEmbedLocal`` embed, as JAX's do. Not
-ported: the GLIF packing (no such model in the port).
+The ANN rules cover the ``PatchEmbedLocal`` embed, as JAX's do. The GLIF
+fields map one to one onto the port's ``sn.glif.<field>`` entries (JAX
+packs them into its ``GLIFParams`` leaf). As in JAX, the rules name BN
+sites only: the GN / IN / LN (``GroupNorm_0``), BN_notrack and BNTT
+entries of a model with such a ``spike_norm`` have no reference name.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ import torch.nn as nn
 
 from ..models.ann_flownet import MultiResUNetFlow, STTFlowNet
 from ..models.ann_layers import InstanceNorm
-from ..models.spiking_layers import Conv2d, TorchBatchNorm, TorchConvTranspose
+from ..models.snn_flownet import SpikingMultiResUNetFlow
+from ..models.spiking_layers import (Conv2d, GroupNorm, TorchBatchNorm,
+                                     TorchConvTranspose)
 from .from_jax import from_jax
 
 _TRANSFORMS = {
@@ -83,10 +89,11 @@ def _neuron_rules(torch_prefix, flax_prefix):
     return rules
 
 
-def _conv_block_rules(t, f, *, has_sn=True, deconv=False, norm_direct=False):
+def _conv_block_rules(t, f, *, has_sn=True, deconv=False, norm_direct=False,
+                      deconv_kind="deconv"):
     """SpikingConv{Encoder,Decoder,...}Layer: Sequential conv + SpikingNorm
-    + neuron."""
-    kind = "deconv" if deconv else "conv"
+    + neuron; a decoder's ``deconv`` has the layout ``deconv_kind``."""
+    kind = deconv_kind if deconv else "conv"
     tconv = f"{t}.{'deconv' if deconv else 'conv'}.0"
     fconv = f"{f}/{'deconv' if deconv else 'conv'}"
     rules = [
@@ -112,9 +119,11 @@ def _resblock_rules(t, f):
 
 
 def build_rules(num_stages=4, max_depth=8, num_res=2, num_encoders=4,
-                pe_res=2) -> list:
-    """The rule list of the MS_SpikingformerFlowNet family:
-    (reference key, collection, flax path, transform)."""
+                pe_res=2, use_upsample_conv=False) -> list:
+    """The rule list of the SpikingformerFlowNet family (SEW and MS, every
+    patch embed's names): (reference key, collection, flax path,
+    transform). ``use_upsample_conv``: the decoders' ``deconv`` is a
+    regular conv (bilinear resize + conv), not a transposed one."""
     R = []
     root_t = "sttmultires_unet"
     root_f = "sttmultires_unet"
@@ -195,7 +204,9 @@ def build_rules(num_stages=4, max_depth=8, num_res=2, num_encoders=4,
                              f"{root_f}/resblock{i}")
     for i in range(num_encoders):
         R += _conv_block_rules(f"{root_t}.decoders.{i}",
-                               f"{root_f}/decoder{i}", deconv=True)
+                               f"{root_f}/decoder{i}", deconv=True,
+                               deconv_kind="conv" if use_upsample_conv
+                               else "deconv")
         R += _neuron_rules(f"{root_t}.preds.{i}.sn", f"{root_f}/pred{i}/sn")
         R += [(f"{root_t}.preds.{i}.conv.0.weight", "params",
                f"{root_f}/pred{i}/conv/kernel", "conv"),
@@ -316,6 +327,33 @@ def build_unet_rules(num_encoders=4, num_res=2) -> list:
     return R + _ann_decoder_rules("", "", num_encoders, num_res)
 
 
+def build_snn_unet_rules(num_encoders=4, num_res=2,
+                         use_upsample_conv=True) -> list:
+    """The rule list of the spiking U-Net (``SpikingMultiResUNet``, JAX
+    ``build_unet_rules``): ``encoders.{i}``, ``resblocks.{i}``,
+    ``decoders.{i}``, ``preds.{i}`` -> ``encoder{i}``, ``resblock{i}``,
+    ``decoder{i}``, ``pred{i}``. The upsample decoder's ``deconv`` is a
+    regular conv; only the transpose decoder holds a transposed kernel."""
+    R = []
+    for i in range(num_encoders):
+        R += _conv_block_rules(f"encoders.{i}", f"encoder{i}")
+    for i in range(num_res):
+        R += _resblock_rules(f"resblocks.{i}", f"resblock{i}")
+    kind = "conv" if use_upsample_conv else "deconv"
+    for i in range(num_encoders):
+        t, f = f"decoders.{i}", f"decoder{i}"
+        R += [(f"{t}.deconv.0.weight", "params", f"{f}/deconv/kernel", kind),
+              (f"{t}.deconv.0.bias", "params", f"{f}/deconv/bias", "id")]
+        R += _norm_rule(f"{t}.norm_layer", f"{f}/norm")
+        R += _neuron_rules(f"{t}.sn", f"{f}/sn")
+    for i in range(num_encoders):
+        t, f = f"preds.{i}", f"pred{i}"
+        R += [(f"{t}.conv.0.weight", "params", f"{f}/conv/kernel", "conv"),
+              (f"{t}.conv.0.bias", "params", f"{f}/conv/bias", "id")]
+        R += _neuron_rules(f"{t}.sn", f"{f}/sn")
+    return R
+
+
 def convert_with_rules(state_dict: Dict[str, np.ndarray],
                        rules) -> Tuple[dict, dict, list]:
     """Reference state_dict -> (params, batch_stats, unmatched keys) under
@@ -387,6 +425,12 @@ def model_rules(model: nn.Module) -> list:
     if isinstance(model, MultiResUNetFlow):
         return build_unet_rules(num_encoders=model.num_encoders,
                                 num_res=model.num_residual_blocks)
+    if isinstance(model, SpikingMultiResUNetFlow):
+        return build_snn_unet_rules(
+            num_encoders=model.num_encoders,
+            num_res=model.num_residual_blocks,
+            use_upsample_conv=not isinstance(model.decoder0.deconv,
+                                             TorchConvTranspose))
     found = [tuple(map(int, m.groups())) for m in map(
         re.compile(r"\.stage(\d+)\.block(\d+)\.").search, model.state_dict())
         if m]
@@ -396,7 +440,11 @@ def model_rules(model: nn.Module) -> list:
               num_encoders=unet.num_encoders)
     if isinstance(model, STTFlowNet):
         return build_ann_rules(**kw, num_blocks=unet.encoders.num_blocks)
-    return build_rules(**kw)
+    return build_rules(
+        **kw, num_res=unet.num_residual_blocks,
+        pe_res=unet.encoders.patch_embed.residual_encoding.num_blocks,
+        use_upsample_conv=not isinstance(unet.decoder0.deconv,
+                                         TorchConvTranspose))
 
 
 def load_reference_state_dict(state_dict: Dict[str, np.ndarray],
@@ -420,8 +468,8 @@ def _flax_name(module: nn.Module, leaf: str) -> Tuple[str, str]:
     if leaf == "weight" and isinstance(module, (Conv2d, TorchConvTranspose,
                                                 nn.Linear)):
         return "params", "kernel"
-    if leaf == "weight" and isinstance(module, (nn.LayerNorm,
-                                                InstanceNorm)):
+    if leaf == "weight" and isinstance(module, (nn.LayerNorm, InstanceNorm,
+                                                GroupNorm)):
         return "params", "scale"
     return "params", leaf
 

@@ -128,9 +128,13 @@ def test_attention_rejects_what_is_not_ported():
         with pytest.raises(NotImplementedError):   # K1's own contract
             hopper_attn.qk_attn_interior_plain(xt[:, :9],
                                                tmod.kernel_params(), 6)
-    with pytest.raises(NotImplementedError):
-        SpikingQKWindowAttention3D(48, (1, 2, 5), 6,
-                                   SpikingConfig(neuron_type="psn"))
+    # a temporal window of 1 is no longer refused: the raw-refold form
+    # (held against JAX in tests/test_torch_port_zoo_unet.py)
+    attn = SpikingQKWindowAttention3D(48, (1, 2, 5), 6,
+                                      SpikingConfig(neuron_type="psn")).eval()
+    with torch.no_grad():
+        out = attn(torch.rand(1, 10, 2, 5, 48))
+    assert out.shape == (1, 10, 2, 5, 48) and bool(torch.isfinite(out).all())
 
 
 # odd window counts: the raw-refold form (M, wh, ww, C, nh)

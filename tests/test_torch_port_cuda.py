@@ -686,3 +686,49 @@ def test_custom_ops_launch_on_the_card(dev):
         assert got.float().abs().sum() > 0
         result = torch.library.opcheck(op, args)
         assert set(result.values()) == {"SUCCESS"}, result
+
+
+ZOO = [("SpikingformerFlowNet", "Spiking_PatchEmbed_Conv_sfn", 0),
+       ("MS_SpikingformerFlowNet", "MS_Spiking_PatchEmbed_Conv_sfn", 3),
+       ("SpikingMultiResUNet", None, 0)]
+
+
+@pytest.mark.parametrize("name,embed,blocks", ZOO)
+def test_zoo_models_launch_at_every_psn_site(dev, name, embed, blocks):
+    """The SNN zoo's registry names, tiny, float32 on the card: an eval
+    forward launches K2 once at every PSN site that fires (and K1 once a
+    block of the MS model), a train step K2 and K2b once at every PSN site,
+    with finite flows and gradients."""
+    from sdformerflow_tpu_torch.models.common import SpikingConfig, SwinConfig
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    swin = SwinConfig(input_size=(32, 32), depths=(1, 1, 1),
+                      num_heads=(2, 2, 2), out_indices=(0, 1, 2),
+                      window_size=(2, 3, 3), patch_embed_type=embed or "")
+    cfg = SpikingConfig(num_steps=4, v_th=0.3, neuron_type="psn")
+    model = get_model(name, {"num_bins": 4, "base_num_channels": 8}, swin,
+                      cfg)
+    randomize_(model, torch.Generator().manual_seed(7)).to(dev)
+    calls = [0]
+    for m in model.modules():
+        if isinstance(m, SpikingNeuron):
+            m.register_forward_pre_hook(
+                lambda mod, args: calls.__setitem__(0, calls[0] + 1))
+    x = torch.rand(1, 4, 2, 32, 32, generator=torch.Generator()
+                   .manual_seed(8)).to(dev)
+    P, A = hopper_psn, hopper_attn
+    with torch.inference_mode():
+        A.qk_attn_interior.launches = P.fused_affine_psn.launches = 0
+        flows = model(x)["flow"]
+        torch.cuda.synchronize()
+    assert calls[0] > 0 and P.fused_affine_psn.launches == calls[0]
+    assert A.qk_attn_interior.launches == blocks
+    assert all(bool(torch.isfinite(f).all()) for f in flows)
+    calls[0] = 0
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    sum(f.square().mean() for f in model.train()(x)["flow"]).backward()
+    torch.cuda.synchronize()
+    assert P.fused_affine_psn.launches == P.fused_psn_backward.launches \
+        == calls[0] > 0
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters() if p.grad is not None)

@@ -3,7 +3,8 @@
 or JAX-package module in ``sys.modules``, and none of cv2, h5py, pandas or
 PyTables, which the card's host lacks; importing starts no kernel build
 (nvcc and g++ are needed only when a kernel or the event packer is first
-called)."""
+called). The SNN zoo's registry names (with a recurrent neuron and a
+non-BN norm) build and run a forward there, importing no JAX either."""
 
 import subprocess
 import sys
@@ -16,6 +17,18 @@ PROBE = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    import torch
+    from sdformerflow_tpu_torch.models.common import SpikingConfig, SwinConfig
+    from sdformerflow_tpu_torch.models.registry import get_model
+    swin = SwinConfig(input_size=(16, 16), depths=(1, 1, 1),
+                      num_heads=(2, 2, 2), out_indices=(0, 1, 2),
+                      window_size=(2, 2, 2),
+                      patch_embed_type="Spiking_PatchEmbed_Conv_sfn")
+    cfg = SpikingConfig(num_steps=4, neuron_type="glif", spike_norm="GN")
+    for zoo in ("SpikingformerFlowNet", "MS_SpikingformerFlowNet",
+                "SpikingMultiResUNet"):
+        get_model(zoo, {"num_bins": 4, "base_num_channels": 16}, swin,
+                  cfg)(torch.rand(1, 4, 2, 16, 16))
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
                                         "sdformerflow_tpu"))
@@ -49,5 +62,8 @@ def test_port_imports_no_jax():
                  "data.mvsec", "data.adapters", "train_mdr", "eval_mvsec",
                  "training.export", "export_model", "serve", "flow_client",
                  "bench_serving", "training.bn_folding", "parallel",
-                 "parallel.mesh"):
+                 "parallel.mesh", "ops.neurons", "ops.surrogate",
+                 "models.spiking_layers", "models.spiking_swin",
+                 "models.spiking_patch_embed", "models.snn_flownet",
+                 "models.registry", "training.from_jax"):
         assert f"sdformerflow_tpu_torch.{name}" in out[4:], name

@@ -8,15 +8,19 @@ symmetric PSN mixes would hide wrong pairings (PERF_NOTES round 3).
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import numpy as np
 import torch
 
 from sdformerflow_tpu.models.common import SpikingConfig as JSpikingConfig
 from sdformerflow_tpu.models.common import SwinConfig as JSwinConfig
+from sdformerflow_tpu.models.registry import get_model as j_get_model
 from sdformerflow_tpu.models.snn_flownet import (
     SpikingformerFlowNet as JSpikingformerFlowNet)
 from sdformerflow_tpu_torch.models.common import SpikingConfig, SwinConfig
+from sdformerflow_tpu_torch.models.registry import get_model
 from sdformerflow_tpu_torch.models.snn_flownet import SpikingformerFlowNet
 from sdformerflow_tpu_torch.training.from_jax import from_jax
 
@@ -73,3 +77,29 @@ def init_pair(jmodel, tmodel, x_enc: np.ndarray, seed: int):
 
 def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
+
+
+def zoo_pair(name, *, model_cfg=None, **kw):
+    """(JAX model, port model) of registry ``name`` on the tiny zoo
+    geometry (T = 4, base 8, depths (1, 1, 1), window (2, 3, 3), 32x32, 4
+    bins, PSN + BN, drop-path off); ``kw`` overrides SwinConfig or
+    SpikingConfig fields (each goes to whichever has it), ``model_cfg`` the
+    registry's model section."""
+    swin_kw = dict(arc_type="swinv1",
+                   patch_embed_type="Spiking_PatchEmbed_Conv_sfn",
+                   input_size=(32, 32), patch_size=(1, 1, 2, 2),
+                   depths=(1, 1, 1), num_heads=(2, 2, 2),
+                   out_indices=(0, 1, 2), window_size=(2, 3, 3),
+                   qk_scale=0.125, drop_path_rate=0.0, mlp_ratio=2.0)
+    cfg_kw = dict(num_steps=4, v_th=0.3, v_reset=None, neuron_type="psn",
+                  spike_norm="BN")
+    swin_fields = {f.name for f in dataclasses.fields(SwinConfig)}
+    for k, v in kw.items():
+        (swin_kw if k in swin_fields else cfg_kw)[k] = v
+    model_cfg = dict({"num_bins": 4, "base_num_channels": 8},
+                     **(model_cfg or {}))
+    jmodel = j_get_model(name, model_cfg, JSwinConfig(**swin_kw),
+                         JSpikingConfig(**cfg_kw))
+    tmodel = get_model(name, model_cfg, SwinConfig(**swin_kw),
+                       SpikingConfig(**cfg_kw))
+    return jmodel, tmodel
