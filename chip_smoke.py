@@ -210,7 +210,27 @@ Phases (any failure exits non-zero):
    encoders, kernel 5, upsample-conv decoders) in bf16: K2, each launch
    against its twin. The JSON line ``{"zoo": ...}`` before the kernels
    line holds them, and each kernel entry's ``launches_zoo`` the launches
-   of those runs.
+   of those runs;
+18. the neuron telemetry and the energy report at full en4 width (the
+   seeded en4 weights with ``store_v_seq``, bf16, 288x384): one collecting
+   request (``make_eval_step(collect_spike_rates=True)``) counted from 0 -
+   K1 0 and K2 once at every PSN site, the attention's five included, and
+   a rate and a membrane record a site, 12 of them ``attn_sn`` - beside a
+   plain request (K1 12, K2 45); the same collecting request on the plain
+   twins (``site_functions``), every site's rate within 1e-3 of the
+   kernels'; K2 with its potential output at every PSN shape of that
+   request against ``psn_neuron(return_v=True)``, float32 and bfloat16
+   (spikes and h bit for bit on dyadic inputs; on Gaussian ones at most
+   1e-3 of the spikes flipped and h within 1e-6 of the twin's largest
+   |h|), timed with and without h, alone (in turns) and in a CUDA graph,
+   beside the twin and the bound; the device busy time of a collecting
+   and of a plain request; ``eval_dsec.main`` with
+   ``--store_spike_rates --energy_report --store_membrane --log_attn`` on 2
+   synthetic windows (the five artefacts, launches, rates, energy,
+   attention-map shapes, windows/s) beside the same run without the flags.
+   The JSON line ``{"telemetry": ...}`` before the kernels line holds
+   them, and each kernel entry's ``launches_telemetry`` the collecting
+   request's launches.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -1289,15 +1309,18 @@ def checked_forward(torch, step, chunk, label):
 
 
 def plain_twins(flip_one=False):
-    """Site functions of the plain twins. With ``flip_one``, the first
+    """Site functions of the plain twins (the PSN's with its membrane on
+    ``return_v``, as the telemetry asks). With ``flip_one``, the first
     attention site's first output spike is flipped: the witness of how far
     one flipped spike carries through the forward."""
     from sdformerflow_tpu_torch.ops import hopper_attn as A
     from sdformerflow_tpu_torch.ops.hopper_psn import psn_spike
     pending = [flip_one]
 
-    def psn(x, w, b, *, scale=None, shift=None, **_):   # forward only
-        return psn_spike(x, w, b, scale=scale, shift=shift)
+    def psn(x, w, b, *, scale=None, shift=None, return_v=False,
+            **_):   # forward only
+        return psn_spike(x, w, b, scale=scale, shift=shift,
+                         return_v=return_v)
 
     def attend(x, p, nh):
         a = A.qk_attn_interior_plain(x, p, nh)
@@ -5141,6 +5164,317 @@ def phase_zoo(torch, dev, card):
         phase_s=phase_s)
 
 
+# ----------------------------------------------------------- phase 18
+# the neuron telemetry and the energy report at full en4 width
+
+TELEMETRY_FLAGS = ("--store_spike_rates", "--energy_report",
+                   "--store_membrane", "--log_attn")
+TELEMETRY_ARTEFACTS = ("results.json", "spike_rates.json", "energy.json",
+                       "membrane_stats.json", "attention_maps.npz")
+H_TOL = 1e-6          # K2's potential against the twin's, of its largest |h|
+SITE_RATE_TOL = 1e-3  # a site's rate, kernel path against the plain twins'
+N_TELEMETRY_BUSY = 8  # forwards a device-busy measurement
+
+
+def telemetry_model(torch, dev, config, state_dict):
+    """The en4 model with the membrane monitor on (``store_v_seq``), the
+    seeded weights, float32 on the card."""
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.training.config import build_configs
+    model_cfg, swin, cfg = build_configs(config)
+    model = get_model(config["model"]["name"], model_cfg, swin,
+                      cfg.replace(store_v_seq=True))
+    model.load_state_dict(state_dict)
+    return model.to(dev).eval()
+
+
+@contextlib.contextmanager
+def psn_signatures(model):
+    """Yields a list that gets the (shape, dtype, affine) of every PSN call
+    of ``model`` meanwhile, attention sites included."""
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    sigs = []
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        sigs.append((tuple(x.shape), x.dtype,
+                     kwargs.get("affine") is not None))
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules()
+               if isinstance(m, SpikingNeuron) and m.kind == "psn"]
+    try:
+        yield sigs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def k2_membrane(torch, dev, sigs):
+    """K2 with its potential output at every PSN site shape of a collecting
+    forward, against ``psn_neuron(return_v=True)`` (``psn_spike``), float32
+    and bfloat16: spikes and h bit for bit on dyadic inputs; on Gaussian
+    inputs at most MAX_FLIP_SHARE of the spikes flipped and h within H_TOL
+    of the twin's largest |h|; the spikes always those of the launch
+    without h. Then, in the site's dtype with W and b in the model's, K2
+    with and without h timed alone (prepared launches, in turns: without,
+    with, with, without) and in a CUDA graph, the twin with h, and the
+    bound with h (x read, the spikes and h written). Sums per forward."""
+    from sdformerflow_tpu_torch.ops.hopper_psn import (fused_affine_psn,
+                                                       prepare_k2, psn_spike)
+    gen = torch.Generator().manual_seed(SEED + 18)
+    sites = {}
+    for sig in sigs:
+        sites[sig] = sites.get(sig, 0) + 1
+    out = dict(max_abs_err=0.0, h_max_rel_err=0.0, flip_share=0.0,
+               device_ms=0.0, h_device_ms=0.0, graph_ms=0.0, h_graph_ms=0.0,
+               h_plain_ms=0.0, h_bound_ms=0.0, bound_ms=0.0)
+    by = {"bytes": 0.0, "operations": 0.0}
+    for (shape, sdt, affine), count in sites.items():
+        T, C = shape[0], shape[-1]
+        for dt in (torch.float32, torch.bfloat16):
+            for exact in (True, False):
+                if exact:
+                    w = dyadic((T, T), 0.125, -1.0, 1.0, gen, dev,
+                               torch.float32)
+                    b = dyadic((T, 1), 0.25, -1.0, 1.0, gen, dev,
+                               torch.float32)
+                    kw = (dict(scale=dyadic((C,), 0.25, 0.25, 2.0, gen, dev,
+                                            torch.float32),
+                               shift=dyadic((C,), 0.25, -1.0, 1.0, gen, dev,
+                                            torch.float32))
+                          if affine else {})
+                    x = dyadic(shape, 0.25, -2.0, 2.0, gen, dev, dt)
+                else:
+                    w = torch.randn(T, T, generator=gen).to(dev) * 0.4
+                    b = torch.randn(T, 1, generator=gen).to(dev) * 0.4
+                    kw = (dict(scale=torch.rand(C, generator=gen).to(dev)
+                               + 0.5,
+                               shift=torch.randn(C, generator=gen).to(dev))
+                          if affine else {})
+                    x = torch.randn(shape, generator=gen).to(dev, dt)
+                s, h = fused_affine_psn(x, w, b, return_v=True, **kw)
+                ws, wh = psn_spike(x, w, b, return_v=True, **kw)
+                check(torch.equal(s, fused_affine_psn(x, w, b, **kw)),
+                      f"K2 {shape} {dt}: the spikes with h differ from "
+                      "those without")
+                check(h.dtype == torch.float32 and h.shape == x.shape,
+                      f"K2 {shape}: h {h.dtype} {tuple(h.shape)}")
+                h_err = (h - wh).abs().max().item()
+                scale = wh.abs().max().item()
+                if exact:
+                    err = (s.float() - ws.float()).abs().max().item()
+                    out["max_abs_err"] = max(out["max_abs_err"], err, h_err)
+                    check(err == 0.0 and h_err == 0.0,
+                          f"K2+h {shape} {dt} dyadic: spikes {err}, h "
+                          f"{h_err}")
+                    check(0.0 < s.float().mean().item() < 1.0,
+                          f"K2+h {shape} {dt} dyadic: degenerate output")
+                else:
+                    flip = (s != ws).float().mean().item()
+                    out["flip_share"] = max(out["flip_share"], flip)
+                    out["h_max_rel_err"] = max(out["h_max_rel_err"],
+                                               h_err / scale)
+                    check(flip <= MAX_FLIP_SHARE,
+                          f"K2+h {shape} {dt}: flipped share {flip}")
+                    check(h_err <= H_TOL * scale, f"K2+h {shape} {dt}: "
+                          f"max|h - twin| {h_err} > {H_TOL} x {scale}")
+        xt = torch.randn(shape, generator=gen).to(dev, sdt)
+        wt, bt = w.to(sdt), b.to(sdt)
+        launch_0 = prepare_k2(xt, wt, bt, **kw)[0]
+        launch_h = prepare_k2(xt, wt, bt, return_v=True, **kw)[0]
+        d0 = cuda_time_ms(launch_0)
+        dh = (cuda_time_ms(launch_h) + cuda_time_ms(launch_h)) / 2
+        d0 = (d0 + cuda_time_ms(launch_0)) / 2
+        g0, gh = cuda_graph_ms(launch_0), cuda_graph_ms(launch_h)
+        tp = cuda_time_ms(lambda: psn_spike(xt, wt, bt, return_v=True, **kw))
+        n_col = xt.numel() // T
+        site_bytes = (2 * nbytes(xt) + (T * T + T) * xt.element_size()
+                      + (2 * C * 4 if affine else 0))
+        flops = 2 * T * T * n_col + (2 * T * n_col if affine else 0)
+        b0 = bound(site_bytes, flops, F32_FLOP_S)[0]
+        bh, bh_by = bound(site_bytes + 4 * xt.numel(), flops, F32_FLOP_S)
+        for key, v in (("device_ms", d0), ("h_device_ms", dh),
+                       ("graph_ms", g0), ("h_graph_ms", gh),
+                       ("h_plain_ms", tp), ("h_bound_ms", bh),
+                       ("bound_ms", b0)):
+            out[key] += v * count
+        by[bh_by] += bh * count
+        log(f"[18] K2 {list(shape)} {str(sdt)[6:]} affine={affine} "
+            f"x{count}/collecting forward: alone {d0:.4f} ms, with h "
+            f"{dh:.4f}; graph {g0:.4f}, with h {gh:.4f}; twin with h "
+            f"{tp:.4f}; bound with h {bh:.4f} ({bh_by}): with h alone at "
+            f"{100 * bh / dh:.1f}%, graph {100 * bh / gh:.1f}%")
+    out.update(n_sites=len(sigs), n_shapes=len(sites),
+               h_bound_by=max(by, key=by.get))
+    log(f"[18] K2 per collecting forward ({len(sigs)} sites, "
+        f"{len(sites)} shapes): alone {out['device_ms']:.4f} ms, with h "
+        f"{out['h_device_ms']:.4f}; graphs {out['graph_ms']:.4f}, with h "
+        f"{out['h_graph_ms']:.4f}; twin with h {out['h_plain_ms']:.4f}; "
+        f"bound {out['bound_ms']:.4f}, with h {out['h_bound_ms']:.4f} ms "
+        f"({out['h_bound_by']}); dyadic max|d| {out['max_abs_err']}, "
+        f"gaussian flips {out['flip_share']:.2e}, h rel err "
+        f"{out['h_max_rel_err']:.2e}")
+    return out
+
+
+def rate_stats(rates):
+    v = np.asarray(sorted(rates))
+    return dict(min=float(v[0]), median=float(np.median(v)),
+                max=float(v[-1]))
+
+
+def phase_telemetry(torch, dev, config, state_dict, card):
+    """Phase 18: the neuron telemetry at full en4 width (see the module
+    docstring). Returns the ``{"telemetry": ...}`` record."""
+    import tempfile
+    t_phase = time.perf_counter()
+    from sdformerflow_tpu_torch import eval_dsec as E
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training.checkpoints import save_checkpoint
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    hw = tuple(config["loader"]["crop"])
+    model = telemetry_model(torch, dev, config, state_dict)
+    kw = dict(encoding=config["model"].get("encoding", "voxel"),
+              polarity=config["loader"].get("polarity", True),
+              norm_input=config["model"].get("norm_input"),
+              spike_th=config["data"].get("spike_th"))
+    collect = make_eval_step(model, **kw, compute_dtype=torch.bfloat16,
+                             collect_spike_rates=True)
+    plain = make_eval_step(collect.model, **kw,
+                           compute_dtype=torch.bfloat16)
+    chunk = torch.from_numpy(voxel_requests(1, 10, hw, SEED + 18)[0])[
+        None].to(dev)
+
+    def counted(run):
+        for wrapper in kernel_wrappers().values():
+            wrapper.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in kernel_wrappers().items()}
+
+    # one collecting and one plain request, counted from 0
+    with psn_signatures(collect.model) as sigs:
+        (flows_c, sites), launches_c = counted(lambda: collect(chunk))
+    flows_p, launches_p = counted(lambda: plain(chunk))
+    check(launches_c == launches_of(K2=len(sigs)) and len(sigs) > 0,
+          f"collecting forward: launches {launches_c}, {len(sigs)} PSN "
+          "calls; expected K1 0 and K2 once a PSN call")
+    check(launches_p == launches_of(K1=12, K2=45),
+          f"plain en4 request: launches {launches_p}, expected K1 12, K2 45")
+    rate_keys = [k for k in sites if "spike_rate" in k]
+    mem_keys = [k for k in sites if "membrane" in k]
+    check(len(rate_keys) == len(mem_keys) > 0
+          and sum("attn/attn_sn/" in k for k in rate_keys) == 12,
+          f"{len(rate_keys)} rate and {len(mem_keys)} membrane records, "
+          "expected one each a site and 12 attn_sn")
+    rates_k = {k: float(sites[k]) for k in rate_keys}
+    check(all(torch.isfinite(sites[k]).all() for k in mem_keys),
+          "non-finite membrane statistics")
+    d_flow = max((a - b).abs().max().item() for a, b in zip(flows_c, flows_p))
+    log(f"[18] a collecting en4 request (bf16, 288x384): K1 "
+        f"{launches_c['K1']}, K2 {launches_c['K2']} launches ({len(sigs)} "
+        f"PSN calls); the plain request K1 {launches_p['K1']}, K2 "
+        f"{launches_p['K2']}; {len(rate_keys)} sites, rates "
+        f"{rate_stats(rates_k.values())}; max|flow collecting - plain| "
+        f"{d_flow:.4g} (module-form attention vs K1, bf16)")
+    # (c) the same forward on the plain twins
+    with site_functions(*plain_twins()):
+        _, sites_t = collect(chunk)
+    check(set(sites_t) == set(sites), "the twins' forward records other "
+          "sites")
+    d_rate = max(abs(float(sites_t[k]) - rates_k[k]) for k in rate_keys)
+    d_mem = max(((sites_t[k] - sites[k]).abs().max()
+                 / sites[k].abs().max().clamp(min=1e-30)).item()
+                for k in mem_keys)
+    check(d_rate <= SITE_RATE_TOL, f"a site's rate differs by {d_rate} "
+          f"between the kernels and the plain twins (> {SITE_RATE_TOL})")
+    log(f"[18] kernels vs plain twins, the same collecting forward: max "
+        f"|rate difference| {d_rate:.3g} over {len(rate_keys)} sites, max "
+        f"membrane difference {d_mem:.3g} of the site's largest")
+    # (a) K2 with h at every PSN shape of the collecting forward
+    k2h = k2_membrane(torch, dev, sigs)
+    busy_c = device_ms_per_call(torch, lambda: collect(chunk),
+                                N_TELEMETRY_BUSY)
+    busy_p = device_ms_per_call(torch, lambda: plain(chunk),
+                                N_TELEMETRY_BUSY)
+    log(f"[18] device busy per request: collecting {busy_c:.3f} ms, plain "
+        f"{busy_p:.3f} ms ({card})")
+    del collect, plain
+    # (b) eval_dsec.main with the four flags, and without, bf16
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, model, torch.optim.SGD(model.parameters(),
+                                                     lr=0.0), 0, 0)
+        del model
+        argv = ["--train_config", CONFIG, "--ckpt", ckpt, "--synthetic",
+                "--bf16", "--max_batches", "2"]
+        runs = {}
+        for label, extra in (("flags", list(TELEMETRY_FLAGS)),
+                             ("plain", [])):
+            run_dir = os.path.join(tmp, label)
+            runs[label] = eval_run(torch, E.main,
+                                   argv + extra + ["--run_dir", run_dir])
+            runs[label]["dir"] = run_dir
+        rf, rp = runs["flags"], runs["plain"]
+        missing = [n for n in TELEMETRY_ARTEFACTS
+                   if not os.path.exists(os.path.join(rf["dir"], n))]
+        check(not missing, f"eval_dsec --flags wrote no {missing}")
+        # batch 0 collecting, batch 1 as usual, the log forward (the model's
+        # float32, collecting) once, which re-runs each stage's last
+        # attention (5 PSN sites) for its map
+        n_stages = len(config["swin_transformer"]["swin_depths"])
+        want_f = launches_of(K1=launches_p["K1"],
+                             K2=2 * launches_c["K2"] + launches_p["K2"]
+                             + 5 * n_stages)
+        want_p = launches_of(K1=2 * launches_p["K1"],
+                             K2=2 * launches_p["K2"])
+        check(rf["launches"] == want_f and rp["launches"] == want_p,
+              f"eval_dsec launches: flags {rf['launches']} (expected "
+              f"{want_f}), plain {rp['launches']} (expected {want_p})")
+        with open(os.path.join(rf["dir"], "spike_rates.json")) as f:
+            rates = json.load(f)
+        with open(os.path.join(rf["dir"], "membrane_stats.json")) as f:
+            membrane = json.load(f)
+        with open(os.path.join(rf["dir"], "energy.json")) as f:
+            energy = json.load(f)
+        maps = np.load(os.path.join(rf["dir"], "attention_maps.npz"))
+        shapes = {k: list(maps[k].shape) for k in sorted(maps.files)}
+        res = rf["results"]
+        check(len(rates) == len(membrane) == len(rate_keys)
+              and len(shapes) == 4
+              and all(np.isfinite(res[k]) for k in
+                      ("mean_firing_rate", "energy_mj", "snn_vs_ann_ratio"))
+              and res["energy_mj"] == energy["energy_mj"]
+              and 0.0 < res["snn_vs_ann_ratio"] < 1.0,
+              f"eval_dsec artefacts: {len(rates)} rates, {len(membrane)} "
+              f"membranes, maps {shapes}, results {res}")
+    tel = dict(
+        card=card, collecting_launches=launches_c,
+        plain_launches=launches_p, n_sites=len(rate_keys),
+        rates=rate_stats(rates.values()),
+        mean_firing_rate=res["mean_firing_rate"],
+        energy_mj=res["energy_mj"], snn_vs_ann_ratio=res["snn_vs_ann_ratio"],
+        attention_shapes=shapes,
+        windows_per_s={"flags": rf["windows_per_s"],
+                       "plain": rp["windows_per_s"]},
+        main_s={"flags": rf["main_s"], "plain": rp["main_s"]},
+        eval_launches={"flags": rf["launches"], "plain": rp["launches"]},
+        device_ms_per_request={"collecting": busy_c, "plain": busy_p},
+        twin_max_rate_diff=d_rate, twin_max_membrane_rel_diff=d_mem,
+        flow_collecting_vs_plain=d_flow, k2_h=k2h,
+        aee={"flags": rf["results"]["AEE"], "plain": rp["results"]["AEE"]})
+    log(f"[18] eval_dsec.main, en4 bf16 288x384, 2 synthetic windows, "
+        f"{' '.join(TELEMETRY_FLAGS)}: {len(rates)} sites, rates "
+        f"{tel['rates']}, mean_firing_rate {res['mean_firing_rate']:.5f}, "
+        f"energy {res['energy_mj']:.4f} mJ, {res['snn_vs_ann_ratio']:.4f}x "
+        f"ANN; attention maps {shapes}; windows/s {rf['windows_per_s']:.2f} "
+        f"(without the flags {rp['windows_per_s']:.2f}); main "
+        f"{rf['main_s']:.1f} s ({rp['main_s']:.1f} s)")
+    log(f"[18] phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return tel
+
+
 def main() -> int:
     try:
         import torch
@@ -5204,6 +5538,7 @@ def main() -> int:
         deploy = phase_deploy(torch, dev, config, state_dict, card)
         slice16 = phase_train_slice(torch, dev, config, state_dict, card)
         zoo = phase_zoo(torch, dev, card)
+        tel = phase_telemetry(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5254,7 +5589,13 @@ def main() -> int:
          "graph_ms": k2["graph_ms"],
          "earlier_graph_ms": k2["earlier_graph_ms"],
          "flip_share": k2["flip_share"],
-         "launches_train_step": tr["launches_per_step"]["K2"]},
+         "launches_train_step": tr["launches_per_step"]["K2"],
+         "h_device_ms": tel["k2_h"]["h_device_ms"],
+         "h_graph_ms": tel["k2_h"]["h_graph_ms"],
+         "h_plain_ms": tel["k2_h"]["h_plain_ms"],
+         "h_bound_ms": tel["k2_h"]["h_bound_ms"],
+         "h_max_abs_err": tel["k2_h"]["max_abs_err"],
+         "h_max_rel_err": tel["k2_h"]["h_max_rel_err"]},
         {"name": "K2b fused PSN surrogate backward with its parameter "
                  "reductions (float32, per train step)", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/psn.cu",
@@ -5326,6 +5667,7 @@ def main() -> int:
         entry["launches_s2d_train_step"] = slice16["s2d_train"]["launches"] \
             .get(key, 0)
         entry["launches_zoo"] = zoo["launches"].get(key, 0)
+        entry["launches_telemetry"] = tel["collecting_launches"][key]
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -5346,6 +5688,7 @@ def main() -> int:
     log(json.dumps({"deploy": deploy}))
     log(json.dumps({"train_slice": slice16}))
     log(json.dumps({"zoo": zoo}))
+    log(json.dumps({"telemetry": tel}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@
 //   xa[s] = x[s] * scale[c] + shift[c]          (or x[s] with no affine)
 //   h[t]  = b[t] + sum_s W[t, s] xa[s]          (potential(), both kernels)
 //   out[t] = h[t] >= 0                          (K2: 0/1 spikes)
+//   hout[t] = h[t]          (K2, only when asked: the membrane telemetry)
 //   gh[t] = g[t] * alpha/2 / (1 + (pi/2 alpha h[t])^2)           (K2b)
 //   dxa[s] = sum_t W[t, s] gh[t];  dx[s] = scale[c] dxa[s]
 //   dW[t, s] += gh[t] xa[s];  db[t] += gh[t]
@@ -283,15 +284,32 @@ __device__ __forceinline__ int group_at(const Map& m, const Lane& l,
   return n <= 0 ? 0 : (n < V ? static_cast<int>(n) : V);
 }
 
+// V float32 potentials at p (8 as two 16-byte stores when vec)
+template <int V>
+__device__ __forceinline__ void store_potentials(float* p, const float (&h)[V],
+                                                 int n, bool vec) {
+  Group<float> a, b;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a.w[j] = __float_as_uint(h[j]);
+    b.w[j] = __float_as_uint(h[V == 8 ? j + 4 : j]);
+  }
+  store_group(p, a, n < 4 ? n : 4, vec);
+  if (V == 8 && n > 4) store_group(p + 4, b, n - 4, vec);
+}
+
 // ------------------------------------------------------------------- K2
 
-template <int T, typename In>
+// kH: also write the float32 potential h [T, n] to hout (the membrane of the
+// telemetry), from the registers that hold it for the threshold; the default
+// launch (kH false) is the kernel without it
+template <int T, typename In, bool kH>
 __global__ void __launch_bounds__(kThreads)
 psn_fwd_kernel(const In* __restrict__ x, const void* __restrict__ w,
                const void* __restrict__ b, int wdt,
                const float* __restrict__ scale,
                const float* __restrict__ shift, void* __restrict__ out,
-               int odt, Map m, bool vec) {
+               float* __restrict__ hout, int odt, Map m, bool vec) {
   constexpr int V = Group<In>::V;
   __shared__ __align__(16) float sw[T][Padded<T>::TP];
   __shared__ float sb[T];
@@ -329,10 +347,14 @@ psn_fwd_kernel(const In* __restrict__ x, const void* __restrict__ w,
       float wr[T];
       load_row<T>(sw[t], wr);
       unsigned fire = 0u;
+      float h[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j)
-        fire |= (potential<T>(wr, sb[t], xa[j]) >= 0.0f ? 1u : 0u) << j;
+      for (int j = 0; j < V; ++j) {
+        h[j] = potential<T>(wr, sb[t], xa[j]);
+        fire |= (h[j] >= 0.0f ? 1u : 0u) << j;
+      }
       store_spikes<V>(out, odt, t * m.n + col0, fire, n, vec);
+      if constexpr (kH) store_potentials<V>(hout + t * m.n + col0, h, n, vec);
     }
   }
 }
@@ -643,18 +665,30 @@ int64_t bwd_workspace(const Plan& p, bool affine) {
          + (affine ? static_cast<int64_t>(p.grid.y) * 2 * p.map.row_len : 0);
 }
 
-template <int T, typename In>
-int fwd(const void* x, const void* w, const void* b, int wdt,
-        const float* scale, const float* shift, void* out, int odt,
-        int64_t n, int channels, cudaStream_t stream) {
-  static const int occ = blocks_per_sm(psn_fwd_kernel<T, In>);
+template <int T, typename In, bool kH>
+int fwd_launch(const void* x, const void* w, const void* b, int wdt,
+               const float* scale, const float* shift, void* out, float* hout,
+               int odt, int64_t n, int channels, cudaStream_t stream) {
+  static const int occ = blocks_per_sm(psn_fwd_kernel<T, In, kH>);
   const Plan p = plan<In>(n, channels, scale != nullptr, occ,
                           reinterpret_cast<uintptr_t>(x)
-                              | reinterpret_cast<uintptr_t>(out));
-  psn_fwd_kernel<T, In><<<p.grid, kThreads, 0, stream>>>(
-      static_cast<const In*>(x), w, b, wdt, scale, shift, out, odt, p.map,
-      p.vec);
+                              | reinterpret_cast<uintptr_t>(out)
+                              | reinterpret_cast<uintptr_t>(hout));
+  psn_fwd_kernel<T, In, kH><<<p.grid, kThreads, 0, stream>>>(
+      static_cast<const In*>(x), w, b, wdt, scale, shift, out, hout, odt,
+      p.map, p.vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int T, typename In>
+int fwd(const void* x, const void* w, const void* b, int wdt,
+        const float* scale, const float* shift, void* out, float* hout,
+        int odt, int64_t n, int channels, cudaStream_t stream) {
+  return hout == nullptr
+      ? fwd_launch<T, In, false>(x, w, b, wdt, scale, shift, out, nullptr, odt,
+                                 n, channels, stream)
+      : fwd_launch<T, In, true>(x, w, b, wdt, scale, shift, out, hout, odt, n,
+                                channels, stream);
 }
 
 template <int T, typename In>
@@ -711,12 +745,13 @@ bool bad_args(int64_t n, int steps, int channels, const float* scale,
 // (1-16). x is float32 (dtype 0) or bfloat16 (dtype 1), the spikes out are
 // float32 (out_dtype 0) or bfloat16 (1), both contiguous [steps, n]; w
 // [steps, steps] and b [steps] in float32 (w_dtype 0) or bfloat16 (1);
-// scale and shift float32 [channels] on the last axis of x, or both null.
-// Returns the cudaError_t of the launch.
+// scale and shift float32 [channels] on the last axis of x, or both null;
+// hout, if not null, receives the float32 potential h [steps, n] whose sign
+// made each spike. Returns the cudaError_t of the launch.
 extern "C" int psn_fwd(const void* x, const void* w, const void* b,
                        const float* scale, const float* shift, void* out,
-                       int64_t n, int steps, int channels, int dtype,
-                       int w_dtype, int out_dtype, void* stream) {
+                       float* hout, int64_t n, int steps, int channels,
+                       int dtype, int w_dtype, int out_dtype, void* stream) {
   if (bad_args(n, steps, channels, scale, shift, dtype, w_dtype)
       || out_dtype < 0 || out_dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -726,9 +761,9 @@ extern "C" int psn_fwd(const void* x, const void* w, const void* b,
 #define PSN_FWD_CASE(TT)                                                     \
   case TT:                                                                   \
     return dtype == 0                                                        \
-        ? fwd<TT, float>(x, w, b, w_dtype, scale, shift, out, out_dtype, n,  \
-                         channels, s)                                        \
-        : fwd<TT, __nv_bfloat16>(x, w, b, w_dtype, scale, shift, out,        \
+        ? fwd<TT, float>(x, w, b, w_dtype, scale, shift, out, hout,          \
+                         out_dtype, n, channels, s)                          \
+        : fwd<TT, __nv_bfloat16>(x, w, b, w_dtype, scale, shift, out, hout,  \
                                  out_dtype, n, channels, s);
     PSN_STEPS(PSN_FWD_CASE)
 #undef PSN_FWD_CASE

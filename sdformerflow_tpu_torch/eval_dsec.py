@@ -20,6 +20,21 @@ checkpoint directory (``--ckpt``) or a ``.pt`` under the reference's
 state_dict names (``--torch_ckpt``). BN always uses its running
 statistics. ``results.json`` in the run directory holds the metrics.
 
+The monitors of the JAX script, with its artefacts under its names:
+``--store_spike_rates`` (``spike_rates.json``, each neuron site's firing
+rate on the first batch, and ``mean_firing_rate`` in ``results.json``),
+``--store_membrane`` (``membrane_stats.json``, each site's per-step
+membrane mean, std and max on the first batch), ``--energy_report`` (implies
+``--store_spike_rates``; ``energy.json``, the firing-rate-weighted SynOps
+estimate of ``utils/energy.py``, and ``energy_mj`` / ``snn_vs_ann_ratio``
+in ``results.json``; the MS spikeformer family only) and ``--log_attn``
+(``attention_maps.npz``, each stage's attention map on the first batch,
+from a forward of the model in its own dtype). The first batch's
+collecting forward runs the MS attention in its module form (no K1), as
+JAX's unfused eval does; the other batches run as without the flags.
+``--show`` (live cv2 windows) is not ported: the card's host has no GUI
+and no cv2 (ROADMAP section 1 item 9).
+
 It runs on the CUDA card unless ``--device cpu`` is given, and fails when
 there is no card.
 """
@@ -28,8 +43,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
+import numpy as np
 import torch
 
 from .data.augmentation import center_crop
@@ -37,6 +54,7 @@ from .data.dsec import (DSECDatasetLite, DSECEventListDataset,
                         SyntheticEventFlowDataset, SyntheticEventListDataset,
                         batch_iterator)
 from .models.registry import get_model
+from .models.spiking_layers import collect_sites
 from .training.checkpoints import restore_checkpoint
 from .training.config import (build_configs, chunk_bins, load_config,
                               merge_eval_config)
@@ -45,12 +63,12 @@ from .training.s2d_embed import s2d_embed_state_dict
 from .training.torch_interop import (load_reference_state_dict,
                                      load_torch_checkpoint)
 from .training.train_loop import _events_voxelize_cfg, _to_device
-from .training.train_step import make_eval_step
+from .training.train_step import _model_input, make_eval_step
+from .utils.energy import energy_spikingformer
 from .utils.logging import RunLogger
 
 # flags of scripts/eval_dsec.py whose monitors are not ported
-_NOT_PORTED = ("store_spike_rates", "energy_report", "store_membrane",
-               "log_attn", "show")
+_NOT_PORTED = ("show",)
 
 
 def parse_args(argv=None):
@@ -88,9 +106,20 @@ def parse_args(argv=None):
                          "run_dir/vis/submission")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--store_spike_rates", action="store_true",
+                    help="record each neuron site's firing rate (SNN only)")
+    ap.add_argument("--energy_report", action="store_true",
+                    help="firing-rate-weighted SynOps energy estimate (MS "
+                         "spikeformer family; implies --store_spike_rates)")
+    ap.add_argument("--store_membrane", action="store_true",
+                    help="record each neuron site's membrane statistics "
+                         "(mean / std / max per time step)")
+    ap.add_argument("--log_attn", action="store_true",
+                    help="store each stage's attention map of the first "
+                         "batch")
     for flag in _NOT_PORTED:
         ap.add_argument(f"--{flag}", action="store_true",
-                        help="not ported (ROADMAP section 1 item 11)")
+                        help="not ported (ROADMAP section 1 item 9)")
     return ap.parse_args(argv)
 
 
@@ -112,7 +141,8 @@ def build_dataset(config: dict, *, synthetic=False, structured=False):
 
 
 def evaluate(config: dict, model, dataset, *, device="cuda", bf16=False,
-             max_batches=None, vis=None, submission=False) -> dict:
+             max_batches=None, vis=None, submission=False, sites=None,
+             attention=None) -> dict:
     """Run the protocol over ``dataset`` with ``model`` (already on
     ``device``, running-statistics BN) and return the metrics dict
     (AEE, PE1-3, outlier, AAE if named, num_batches, num_samples), computed
@@ -121,7 +151,14 @@ def evaluate(config: dict, model, dataset, *, device="cuda", bf16=False,
     ``bf16`` runs a bf16 copy of the parameters; else the model's own dtype.
     ``vis`` (``utils.visualization.AsyncVisWriter``) gets the first sample
     of each batch: its flow, GT flow and, with ``submission``, the
-    submission flow."""
+    submission flow.
+
+    ``sites`` (a dict) receives the neuron telemetry of the first batch's
+    forward (``models/spiking_layers.py:collect_sites``, device tensors in
+    JAX's key order); ``attention`` (a list) the first batch's attention
+    maps, one a stage, from a forward of ``model`` in its own dtype on the
+    encoded chunk (``log=True``), as JAX's ``--log_attn`` runs its uncast
+    parameters."""
     loader = config["loader"]
     kw = dict(encoding=config["model"].get("encoding", "voxel"),
               polarity=(loader.get("polarity", True)
@@ -157,11 +194,19 @@ def evaluate(config: dict, model, dataset, *, device="cuda", bf16=False,
             chunk = batch["chunk"]
             if crop:
                 chunk, label, mask = center_crop(chunk, label, mask, crop)
+        if i == 0 and sites is not None:
+            with collect_sites(eval_step.model) as found:
+                flows = eval_step(chunk)
+            sites.update(found)
+        else:
+            flows = eval_step(chunk)
+        if i == 0 and attention is not None:
+            attention.extend(attention_maps(model, chunk, voxelize, crop, kw))
         # the step's float32 flows, the metrics in float64: in float32,
         # acos quantizes small angles, which moved AAE by 1.4e-5 of itself
         # against float64 on an H100 (chip_smoke.py phase 12)
         pred, label, mask = (t.double()
-                             for t in (eval_step(chunk)[-1], label, mask))
+                             for t in (flows[-1], label, mask))
         acc.append(metrics_fn(pred, label, mask,
                               None if "events" in batch else chunk),
                    label.shape[0])
@@ -169,6 +214,22 @@ def evaluate(config: dict, model, dataset, *, device="cuda", bf16=False,
             vis.update(flow=pred[0], gt_flow=label[0],
                        submission_flow=pred[0] if submission else None)
     return acc.results()
+
+
+def attention_maps(model, chunk, voxelize, crop, input_kw):
+    """Each stage's attention map (``log=True``) of one forward of
+    ``model`` in eval mode and in its own dtype on ``chunk`` (a batch of
+    the step's input: voxels, or raw events that are voxelized and
+    cropped), as numpy arrays. The forward runs under a collection whose
+    records are dropped, so that every attention takes its module form, as
+    in JAX's unfused forward."""
+    with torch.inference_mode():
+        x = _model_input(chunk, None, voxelize, crop if voxelize else None,
+                         **input_kw)
+        model.eval()
+        with collect_sites(model):
+            out = model(x.to(next(model.parameters()).dtype), log=True)
+    return [a.cpu().numpy() for a in out["attn"] or []]
 
 
 def load_weights(model, *, ckpt=None, torch_ckpt=None):
@@ -194,7 +255,10 @@ def main(argv=None) -> dict:
     for flag in _NOT_PORTED:
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag} is not ported (ROADMAP section 1 item 11)")
+                f"--{flag} is not ported: live cv2 windows need a GUI and "
+                "cv2, which the card's host lacks (ROADMAP section 1 item 9)")
+    if args.energy_report:
+        args.store_spike_rates = True
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         raise SystemExit("eval_dsec: no CUDA device; pass --device cpu to "
@@ -210,6 +274,8 @@ def main(argv=None) -> dict:
                             structured=args.structured)
 
     model_cfg, swin_cfg, spiking_cfg = build_configs(config)
+    if args.store_membrane:
+        spiking_cfg = spiking_cfg.replace(store_v_seq=True)
     name = config["model"]["name"]
     model = get_model(name, model_cfg, swin_cfg, spiking_cfg,
                       input_bins=chunk_bins(config))
@@ -225,16 +291,65 @@ def main(argv=None) -> dict:
     if args.store_vis or args.store_submission:
         from .utils.visualization import AsyncVisWriter, FlowVisualizer
         vis = AsyncVisWriter(FlowVisualizer(f"{args.run_dir}/vis"))
+    sites = {} if args.store_spike_rates or args.store_membrane else None
+    attention = [] if args.log_attn else None
     try:
         results = evaluate(config, model, dataset, device=args.device,
                            bf16=args.bf16, max_batches=args.max_batches,
-                           vis=vis, submission=args.store_submission)
+                           vis=vis, submission=args.store_submission,
+                           sites=sites, attention=attention)
     finally:
         if vis is not None:
             vis.close()
+    spike_rates = membrane = energy = None
+    if sites is not None:
+        # one copy to the host for all the sites (an ANN has none)
+        keys, values = list(sites), {}
+        if keys:
+            flat = torch.cat([sites[k].float().reshape(-1)
+                              for k in keys]).cpu()
+            values = {k: t.tolist() for k, t in zip(keys, flat.split(
+                [sites[k].numel() for k in keys]))}
+        if args.store_spike_rates:
+            spike_rates = {k: float(np.mean(v)) for k, v in values.items()
+                           if "spike_rate" in k}
+        if args.store_membrane:
+            membrane = {k: np.asarray(v, np.float32).reshape(-1, 3).tolist()
+                        for k, v in values.items() if "membrane" in k}
+    if spike_rates is not None:
+        results["mean_firing_rate"] = float(
+            np.mean(list(spike_rates.values())))
+    if args.energy_report and spike_rates:
+        if name.startswith("MS_Spikingformer"):
+            polarity = (config["loader"].get("polarity", True)
+                        and "Spiking" in name)
+            energy = energy_spikingformer(
+                swin_cfg, spike_rates, num_steps=spiking_cfg.num_steps,
+                base_channels=config["model"].get("base_num_channels", 96),
+                num_encoders=model.sttmultires_unet.num_encoders,
+                num_ch=2 if polarity else 1,
+                kernel_size=config["model"].get("kernel_size", 3))
+            results["energy_mj"] = energy["energy_mj"]
+            results["snn_vs_ann_ratio"] = energy["snn_vs_ann_ratio"]
+        else:
+            print(f"--energy_report: SynOps mapping is scoped to the "
+                  f"MS spikingformer family (got {name}); skipped")
     logger = RunLogger(args.run_dir, config)
     logger.log_artifact_dict("results.json", results)
+    if spike_rates is not None:
+        logger.log_artifact_dict("spike_rates.json", spike_rates)
+    if energy is not None:
+        logger.log_artifact_dict("energy.json", energy)
+        print(f"energy: {energy['energy_mj']:.3f} mJ/forward "
+              f"({energy['snn_vs_ann_ratio']:.3f}x of the "
+              f"all-MAC ANN equivalent)")
+    if membrane is not None:
+        logger.log_artifact_dict("membrane_stats.json", membrane)
     logger.close()
+    if attention is not None:
+        os.makedirs(args.run_dir, exist_ok=True)
+        np.savez(os.path.join(args.run_dir, "attention_maps.npz"),
+                 **{f"stage{k}": a for k, a in enumerate(attention)})
     print(json.dumps(results, indent=2))
     return results
 

@@ -10,8 +10,7 @@ The JAX-only switches left out:
   window count of a temporal window of 2 (in train, or for another neuron
   or norm; K1 is its eval form), which is what the switch selects in JAX,
   and the raw-refold form elsewhere, where JAX's switch has no effect
-  either;
-- ``store_v_seq``: the membrane monitor (ROADMAP section 1 item 9).
+  either.
 
 One deviation under ``fold_bn``: JAX turns its fused attention off there
 (``spiking_swin.py:323-328``); the port keeps K1, on the folded linears
@@ -38,6 +37,10 @@ class SpikingConfig:
     tau: float = 2.0
     detach_reset: bool = True
     spike_norm: Optional[str] = "BN"
+    # the membrane monitor: while a collection is active
+    # (spiking_layers.collect_sites) each neuron site also records its
+    # per-step membrane statistics
+    store_v_seq: bool = False
     # eval-time BN folding (training/bn_folding.py:fold_model): every
     # foldable BN site is skipped and its partner conv / linear has a bias
     fold_bn: bool = False

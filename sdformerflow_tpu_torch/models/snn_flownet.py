@@ -5,7 +5,10 @@ SDformerFlow networks and the plain spiking U-Net: a mirror of
 Input: per-polarity voxel chunk ``[B, bins, 2, H, W]`` (see
 ``ops.normalization.encode_input``). Output: ``{"flow": [coarse -> fine],
 "attn": None}``, each flow ``[B, 2, H, W]``: spikes summed over T, then
-nearest-upsampled to the input resolution.
+nearest-upsampled to the input resolution. The spikeformer networks take
+``log=True`` (JAX ``snn_flownet.py:146-192,212-239``): ``"attn"`` is then
+the list of each stage's attention map (``models/spiking_swin.py``,
+``SpikingSwinStage(collect_attention=True)``).
 """
 
 from __future__ import annotations
@@ -88,15 +91,25 @@ class SpikingSwinTransformer3D(nn.Module):
                     dim, spikformer_norm, cfg.num_steps, cfg.v_th))
             h, w = -(-h // 2), -(-w // 2)  # merge pads odd sizes
 
-    def forward(self, x, pre_embedded: bool = False):
+    def forward(self, x, pre_embedded: bool = False,
+                collect_attention: bool = False):
+        """The stages' outputs; with ``collect_attention`` also the list of
+        each stage's attention map."""
         if not pre_embedded:   # else x is already the embed's output
             x = self.patch_embed(x)
-        outs = []
+        outs, attns = [], []
         for i in range(self.num_stages):
-            x, pre_merge = getattr(self, f"stage{i}")(x)
+            stage = getattr(self, f"stage{i}")
+            if collect_attention:
+                x, pre_merge, attn = stage(x, collect_attention=True)
+                attns.append(attn)
+            else:
+                x, pre_merge = stage(x)
             if i in self.out_indices:
                 norm = getattr(self, f"norm{i}", None)
                 outs.append(pre_merge if norm is None else norm(pre_merge))
+        if collect_attention:
+            return outs, attns
         return outs
 
 
@@ -183,8 +196,14 @@ class SpikingformerMultiResUNet(_SpikingDecoder):
             num_output_channels, kernel_size, skip_type, use_upsample_conv,
             ms)
 
-    def forward(self, x, pre_embedded: bool = False):
-        return self._decode(self.encoders(x, pre_embedded))
+    def forward(self, x, pre_embedded: bool = False, log: bool = False):
+        """The predictions; with ``log`` also the stages' attention
+        maps."""
+        if not log:
+            return self._decode(self.encoders(x, pre_embedded))
+        blocks, attns = self.encoders(x, pre_embedded,
+                                      collect_attention=True)
+        return self._decode(blocks), attns
 
 
 class SpikingformerFlowNet(nn.Module):
@@ -203,14 +222,16 @@ class SpikingformerFlowNet(nn.Module):
             num_encoders=num_encoders, kernel_size=kernel_size,
             use_upsample_conv=use_upsample_conv, ms=ms)
 
-    def forward(self, x, pre_embedded=None):
+    def forward(self, x, pre_embedded=None, log: bool = False):
         """``x`` [B, bins, 2, H, W]; ``pre_embedded``, if given, is the patch
         embed's output [T, B, H/4, W/4, C] computed elsewhere
         (``ops/hopper_embed.py:fused_embed_forward``), and ``x`` then only
-        sets the output resolution."""
-        preds = (self.sttmultires_unet(x) if pre_embedded is None
-                 else self.sttmultires_unet(pre_embedded, True))
-        return {"flow": _flows(preds, tuple(x.shape[-2:])), "attn": None}
+        sets the output resolution. ``log``: ``"attn"`` holds the stages'
+        attention maps."""
+        out = (self.sttmultires_unet(x, log=log) if pre_embedded is None
+               else self.sttmultires_unet(pre_embedded, True, log=log))
+        preds, attns = out if log else (out, None)
+        return {"flow": _flows(preds, tuple(x.shape[-2:])), "attn": attns}
 
 
 class SpikingMultiResUNetFlow(_SpikingDecoder):

@@ -25,14 +25,23 @@ the places JAX does; the weights come from
 ``training/bn_folding.py:fold_model``. A fused BN -> PSN site then runs K2
 with no affine.
 
+The neuron telemetry (JAX's ``spike_rate`` and ``membrane`` sows,
+``spiking_layers.py:50-83``): inside ``with collect_sites(model) as
+sites:`` every neuron site of ``model`` records, for each call, its firing
+rate and, with ``cfg.store_v_seq``, its membrane statistics, as device
+tensors under the keys ``scripts/eval_dsec.py`` writes. At a fused K2 site
+the membrane is K2's potential output; at a recurrent neuron the loop's
+``return_v``. Outside a collection nothing is recorded.
+
 Not ported: the MS Sep-conv layers (``spiking_layers.py:631-748``, which no
-model of the JAX package calls) and the neuron telemetry (the
-``spike_rate`` / membrane sows).
+model of the JAX package calls).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import re
 
 import torch
 import torch.nn as nn
@@ -63,6 +72,72 @@ class GLIF(nn.Module):
                                     for f in neurons.GLIFParams._fields))
 
 
+def spike_rate(out: torch.Tensor) -> torch.Tensor:
+    """A site's firing rate, ``mean(out != 0)`` in float32 (a 0-d device
+    tensor)."""
+    return (out != 0).to(torch.float32).mean()
+
+
+def membrane_stats(v: torch.Tensor) -> torch.Tensor:
+    """[T, 3]: the (mean, std, max) over every axis but time of the
+    float32 potential, the population std (``jnp.std``, ddof 0)."""
+    v = v.to(torch.float32)
+    dims = tuple(range(1, v.dim()))
+    return torch.stack([v.mean(dim=dims), v.std(dim=dims, correction=0),
+                        v.amax(dim=dims)], dim=-1)
+
+
+class _Site:
+    """One neuron's share of a collection: its scope (the flax path,
+    "/"-joined) and the collection's records."""
+
+    def __init__(self, scope: str, sites: dict):
+        self.scope, self.sites = scope, sites
+        self.calls: dict = {}
+
+    def record(self, kind: str, value: torch.Tensor):
+        """Add one call's ``value`` under ``<scope>/<kind>/[i]``, i the
+        site's calls of that kind before it (flax's sow tuple)."""
+        i = self.calls.get(kind, 0)
+        self.calls[kind] = i + 1
+        self.sites[f"{self.scope}/{kind}/[{i}]"] = value
+
+
+def site_order(key: str):
+    """The order JAX's tree flatten gives the keys: path components
+    sorted, a ``[i]`` index by its number."""
+    return [(0, int(p[1:-1]), "") if re.fullmatch(r"\[\d+\]", p)
+            else (1, 0, p) for p in key.split("/")]
+
+
+@contextlib.contextmanager
+def collect_sites(model: nn.Module):
+    """Collect the telemetry of ``model``'s neurons while the block runs:
+    yields a dict that each neuron call fills, ``{"<path>/spike_rate/[i]":
+    rate}`` and, with ``cfg.store_v_seq``, ``{"<path>/membrane/[i]": [T,
+    3]}``, where ``<path>`` is the module's name with "/" for "." (the
+    flax path, so the keys are those ``scripts/eval_dsec.py`` writes) and
+    ``i`` counts the site's calls; at the end of the block the keys are in
+    JAX's flatten order (:func:`site_order`). The values stay on the
+    device. The MS attention runs its module form while collecting, firing
+    ``attn_sn`` (``models/spiking_swin.py``)."""
+    sites: dict = {}
+    neurons = [(name, m) for name, m in model.named_modules()
+               if isinstance(m, SpikingNeuron)]
+    for name, m in neurons:
+        if m.telemetry is not None:
+            raise RuntimeError(f"{name} is already being collected")
+        m.telemetry = _Site(name.replace(".", "/"), sites)
+    try:
+        yield sites
+    finally:
+        for _, m in neurons:
+            m.telemetry = None
+        ordered = sorted(sites.items(), key=lambda kv: site_order(kv[0]))
+        sites.clear()
+        sites.update(ordered)
+
+
 class SpikingNeuron(nn.Module):
     """The config's neuron over [T, ...] with its surrogate gradient.
 
@@ -70,7 +145,12 @@ class SpikingNeuron(nn.Module):
     affine ``a * x + c`` of a preceding BN is applied in the same pass (K2's
     fused form, K2b in the backward). IF / LIF / SLTT-LIF / PLIF (parameter
     ``w``) / GLIF (parameters under ``glif``): the recurrences of
-    ``ops/neurons.py``, which take no affine."""
+    ``ops/neurons.py``, which take no affine.
+
+    Inside :func:`collect_sites` each call records its firing rate and,
+    with ``cfg.store_v_seq``, its membrane statistics (the PSN's potential
+    ``h``, K2's second output at a fused site; the recurrences' membrane
+    each step fired from)."""
 
     def __init__(self, cfg: SpikingConfig):
         super().__init__()
@@ -78,6 +158,7 @@ class SpikingNeuron(nn.Module):
         if self.kind not in NEURON_TYPES:
             raise ValueError(f"unknown neuron_type {cfg.neuron_type!r}")
         self.cfg = cfg
+        self.telemetry = None   # a _Site while collect_sites runs
         T = cfg.num_steps
         if self.kind == "psn":
             bound = math.sqrt(1.0 / T)  # kaiming_uniform(a=sqrt(5)) on [T, T]
@@ -90,20 +171,32 @@ class SpikingNeuron(nn.Module):
             self.glif = GLIF(T)
 
     def forward(self, x, affine=None):
+        site = self.telemetry
+        want_v = site is not None and self.cfg.store_v_seq
+        out = self._fire(x, affine, want_v)
+        if want_v:
+            out, v = out
+            site.record("membrane", membrane_stats(v))
+        if site is not None:
+            site.record("spike_rate", spike_rate(out))
+        return out
+
+    def _fire(self, x, affine, return_v):
         cfg = self.cfg
         if self.kind == "psn":
             if x.shape[0] != self.weight.shape[0]:
                 raise ValueError(f"PSN built for T={self.weight.shape[0]} "
                                  f"but input has T={x.shape[0]}")
             scale, shift = affine if affine is not None else (None, None)
+            kw = dict(return_v=True) if return_v else {}
             return affine_psn(x, self.weight, self.bias, scale=scale,
                               shift=shift, surrogate=cfg.surrogate,
-                              alpha=cfg.surrogate_alpha)
+                              alpha=cfg.surrogate_alpha, **kw)
         if affine is not None:
             raise ValueError(f"a {self.kind} neuron takes no fused affine")
         sg = get_surrogate(cfg.surrogate, cfg.surrogate_alpha)
         reset = dict(v_th=cfg.v_th, v_reset=cfg.v_reset, surrogate_fn=sg,
-                     detach_reset=cfg.detach_reset)
+                     detach_reset=cfg.detach_reset, return_v=return_v)
         if self.kind == "if":
             return neurons.if_neuron(x, **reset)
         if self.kind == "lif":
@@ -112,7 +205,8 @@ class SpikingNeuron(nn.Module):
             return neurons.sltt_lif_neuron(x, tau=cfg.tau, **reset)
         if self.kind == "plif":
             return neurons.plif_neuron(x, self.w, **reset)
-        return neurons.glif_neuron(x, self.glif.params(), surrogate_fn=sg)
+        return neurons.glif_neuron(x, self.glif.params(), surrogate_fn=sg,
+                                   return_v=return_v)
 
 
 class TorchBatchNorm(nn.Module):

@@ -15,7 +15,11 @@ windows ``[wd, B_, wh, ww, C]``, and every neuron inside it runs at
   norm) the pair-local module form (``spiking_swin.py:330-358,371-376``).
   Elsewhere (an odd window count, a temporal window other than 2) both modes
   run the raw-refold module form (``:360-370``). The shift mask is ignored,
-  as in the reference.
+  as in the reference. While the neurons' telemetry is collected
+  (``spiking_layers.collect_sites``) or the attention map is asked for,
+  the module forms run in eval too and fire the telemetry neuron
+  ``attn_sn`` on the attention output, as JAX's module forms do (``:371``;
+  its fused attention carries no telemetry either, ``:257-260``).
 - SEW blocks: the spiking BN window attention (q, k and v branches, swin-v1
   ``q kᵀ`` with the relative-position bias table and no softmax, or swin-v2
   Hamming similarity with softmax, ``logit_scale`` and the cpb MLP), which
@@ -33,6 +37,11 @@ gain a bias, as in JAX. JAX also turns its fused attention off there
 itself; the port keeps K1, whose affine then is the unit scale with the
 folded bias as the shift (:meth:`SpikingQKWindowAttention3D.kernel_params`):
 the same function.
+
+``collect_attention`` (a stage) re-runs its last block's attention on that
+block's input and returns the attention map in window layout: the
+``attn_sn`` spikes [wd, B_, wh, ww, C] of an MS block, the scores
+[B_, nh, N, N] (the shift mask added) of a SEW block (JAX ``:585-587``).
 
 A torch module owns its parameters at construction, so each block is built
 for the stage resolution the config implies (the clamped window decides the
@@ -124,8 +133,9 @@ class SpikingQKWindowAttention3D(nn.Module):
         self.k = _QKVBranch(dim, acfg, norm,
                             pe_shape=(1, num_heads, n_all, dim // num_heads))
         self.sn2_q = SpikingNeuron(acfg)
-        # attention-telemetry neuron: kept so weights carry across one to
-        # one; no form fires it (as in the fused JAX path)
+        # the attention-telemetry neuron: the module forms fire it while
+        # collecting or asked for the map; K1 never does (as JAX's fused
+        # path), and nothing downstream reads its spikes
         self.attn_sn = SpikingNeuron(acfg)
         self.proj = nn.Linear(dim, dim, bias=True)
         self.proj_bn = branch_norm(dim, acfg, norm)
@@ -157,15 +167,18 @@ class SpikingQKWindowAttention3D(nn.Module):
             w_t=self.sn2_q.weight, b_t=self.sn2_q.bias,
             wp=self.proj.weight.t(), bp=self.proj.bias, ap=ap, cp=cp)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, return_attention=False):
+        """The attention output [T, B_, wh, ww, C]; with
+        ``return_attention`` the pair ``(output, attn_sn spikes)``."""
         del mask  # reference quirk: the shift mask is ignored in this path
         T, B_, Hw, Ww, C = x.shape
+        telemetry = return_attention or self.attn_sn.telemetry is not None
         if T != 2 or B_ % 2:
-            return self._raw_refold(x)
-        if not self.training and self.kernel_ok:
+            return self._raw_refold(x, telemetry, return_attention)
+        if not self.training and self.kernel_ok and not telemetry:
             return fused_qk_attention(x, self.kernel_params(), self.num_heads)
-        # the pair-local module form; attn_sn is not fired (its output
-        # never reaches the loss, so its grads stay None)
+        # the pair-local module form; attn_sn fires only for the telemetry
+        # (its output never reaches the loss, so its grads stay None)
         nh = self.num_heads
         hd = C // nh
         x = self.proj_sn(x)
@@ -179,14 +192,22 @@ class SpikingQKWindowAttention3D(nn.Module):
             return v.reshape(2, B_ // 2, Hw, Ww, C)
 
         out = torch.cat([regroup(a[0]), regroup(a[1])], dim=1)
-        return self.proj_bn(self.proj(out))
+        return self._tail(out, telemetry, return_attention)
 
-    def _raw_refold(self, x):
+    def _tail(self, out, telemetry, return_attention):
+        """attn_sn on the attention output (for the telemetry only), then
+        proj and its norm."""
+        scores = self.attn_sn(out) if telemetry else None
+        out = self.proj_bn(self.proj(out))
+        return (out, scores) if return_attention else out
+
+    def _raw_refold(self, x, telemetry=False, return_attention=False):
         """The reference's raw-refold form (``spiking_swin.py:360-370``),
         the JAX package's branch at an odd window count or a temporal window
         other than 2, in eval and in train: q keeps its time axis, k folds
         time into tokens, and the row-major refolds scramble heads as the
-        reference does. attn_sn is not fired, as in the other forms."""
+        reference does. attn_sn fires for the telemetry only, as in the
+        pair-local form."""
         T, B_, Hw, Ww, C = x.shape
         nh = self.num_heads
         hd = C // nh
@@ -195,7 +216,8 @@ class SpikingQKWindowAttention3D(nn.Module):
         k = self.k(x).reshape(B_, nh, -1, hd)
         att = self.sn2_q(q.sum(-1, keepdim=True))     # [T, B_, nh, HW, 1]
         attn = k * att.reshape(B_, nh, -1, 1)         # [B_, nh, T HW, hd]
-        return self.proj_bn(self.proj(_refold_out(attn, T, Hw, Ww, C)))
+        return self._tail(_refold_out(attn, T, Hw, Ww, C), telemetry,
+                          return_attention)
 
 
 class SpikingBNWindowAttention3D(nn.Module):
@@ -261,7 +283,9 @@ class SpikingBNWindowAttention3D(nn.Module):
         bias = cpb[self.rel_idx.reshape(-1)].reshape(nw, nw, nh)
         return (16.0 * torch.sigmoid(bias.permute(2, 0, 1))).to(dtype)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, return_attention=False):
+        """The attention output [T, B_, wh, ww, C]; with
+        ``return_attention`` the pair ``(output, scores [B_, nh, N, N])``."""
         T, B_, Hw, Ww, C = x.shape
         nh = self.num_heads
         hd = C // nh
@@ -284,7 +308,8 @@ class SpikingBNWindowAttention3D(nn.Module):
                 + mask.to(attn.dtype)[None, :, None]
             attn = attn.reshape(-1, nh, N, N)
         out = self.proj(_refold_out(attn @ v, T, Hw, Ww, C))
-        return norm_spike(self.proj_bn, self.proj_sn, out)
+        out = norm_spike(self.proj_bn, self.proj_sn, out)
+        return (out, attn) if return_attention else out
 
 
 class SpikingMlp(nn.Module):
@@ -364,7 +389,7 @@ class SpikingSwinBlock3D(nn.Module):
         self.mlp = SpikingMlp(dim, int(dim * mlp_ratio), cfg, norm=norm,
                               ms=ms)
 
-    def _ssa(self, x):
+    def _ssa(self, x, return_attention=False):
         D, B, H, Wd, C = x.shape
         if (D, H, Wd) != self.input_resolution:
             raise ValueError(f"block built for {self.input_resolution}, got "
@@ -377,13 +402,20 @@ class SpikingSwinBlock3D(nn.Module):
         if self.shifted:
             x = torch.roll(x, (-ss[0], -ss[1], -ss[2]), dims=(0, 2, 3))
         y = self.attn(W.window_partition_v2_tm(x, ws),
-                      getattr(self, "attn_mask", None))
+                      getattr(self, "attn_mask", None),
+                      return_attention=return_attention)
+        if return_attention:
+            return y[1]
         y = W.window_reverse_tm(y, ws, B, Dp, Hp, Wp)
         if self.shifted:
             y = torch.roll(y, ss, dims=(0, 2, 3))
         return y[:D, :, :H, :Wd, :]
 
-    def forward(self, x):
+    def forward(self, x, return_attention=False):
+        """The block's output; with ``return_attention`` only its
+        attention map (the attention run on ``x``, window layout)."""
+        if return_attention:
+            return self._ssa(x, return_attention=True)
         y = self._ssa(x)
         if self.training and self.drop_path_rate > 0.0:
             y = drop_path(y, self.drop_path_rate,
@@ -420,7 +452,8 @@ class SpikingPatchMerging(nn.Module):
 class SpikingSwinStage(nn.Module):
     """``depth`` blocks (alternating shift, block i at drop-path rate
     ``drop_path_rates[i]``, 0 past its end) + optional merge; returns
-    (downsampled, pre-merge features)."""
+    (downsampled, pre-merge features), and with ``collect_attention`` the
+    last block's attention map on its input third."""
 
     def __init__(self, dim, depth, num_heads, cfg: SpikingConfig,
                  input_resolution, window_size=(2, 7, 7), mlp_ratio=4.0,
@@ -443,10 +476,19 @@ class SpikingSwinStage(nn.Module):
         if downsample:
             self.downsample = SpikingPatchMerging(dim, cfg, norm=norm, ms=ms)
 
-    def forward(self, x):
+    def forward(self, x, collect_attention=False):
+        last_input = x
         for i in range(self.depth):
+            last_input = x
             x = getattr(self, f"block{i}")(x)
+        attn = None
+        if collect_attention:
+            # re-run the last block's attention on its input
+            attn = getattr(self, f"block{self.depth - 1}")(
+                last_input, return_attention=True)
         pre_merge = x
         if hasattr(self, "downsample"):
             x = self.downsample(x)
+        if collect_attention:
+            return x, pre_merge, attn
         return x, pre_merge

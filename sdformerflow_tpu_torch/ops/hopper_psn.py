@@ -58,15 +58,21 @@ def _affine(x2, scale, shift, channels):
     return xa.reshape(T, -1)
 
 
-def psn_spike(x_seq, weight, bias, *, scale=None, shift=None):
+def psn_spike(x_seq, weight, bias, *, scale=None, shift=None,
+              return_v=False):
     """Plain PyTorch twin of K2: ``H(W @ (x * scale + shift) + b)`` over
     [T, ..., C] with an optional per-channel (last axis) affine; computed in
-    >= float32, 0/1 spikes returned in ``x_seq``'s dtype."""
+    >= float32, 0/1 spikes returned in ``x_seq``'s dtype. With
+    ``return_v`` also the potential ``h`` (>= float32, ``x_seq``'s shape),
+    the membrane ``psn_neuron(return_v=True)`` gives."""
     if scale is None:
-        return psn_neuron(x_seq, weight, bias)
+        return psn_neuron(x_seq, weight, bias, return_v=return_v)
     cdt = torch.promote_types(x_seq.dtype, torch.float32)
     xa = x_seq.to(cdt) * scale.to(cdt) + shift.to(cdt)
-    return psn_neuron(xa, weight, bias).to(x_seq.dtype)
+    out = psn_neuron(xa, weight, bias, return_v=return_v)
+    if return_v:
+        return out[0].to(x_seq.dtype), out[1]
+    return out.to(x_seq.dtype)
 
 
 # dtype codes of csrc/psn.cu: x, g, dx and the spikes; W and b
@@ -79,7 +85,7 @@ MAX_STEPS = 16   # the time steps csrc/psn.cu is instantiated for
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _F = ctypes.c_float
 ARGTYPES = {
-    "psn_fwd": [_P] * 6 + [_I64] + [_I] * 5 + [_P],
+    "psn_fwd": [_P] * 7 + [_I64] + [_I] * 5 + [_P],
     "psn_bwd": [_P] * 9 + [_I64, _I64] + [_I] * 4 + [_F] * 2 + [_P],
     "psn_bwd_workspace": [_I64] + [_I] * 4,
 }
@@ -148,25 +154,27 @@ def _forward_only(kernel, tensors):
                                   "torch.no_grad() or inference_mode()")
 
 
-def k2_args(x, weight, bias, scale, shift, out):
+def k2_args(x, weight, bias, scale, shift, out, h=None):
     """The arguments of ``psn_fwd`` before the stream, for contiguous
-    tensors that :func:`prepare_k2` has checked."""
+    tensors that :func:`prepare_k2` has checked (``h``: the float32
+    potential's output, or None)."""
     T, C = x.shape[0], x.shape[-1]
     return (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(scale),
-            _ptr(shift), out.data_ptr(), x.numel() // T, T, C,
+            _ptr(shift), out.data_ptr(), _ptr(h), x.numel() // T, T, C,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype],
             _DTYPE_CODES[out.dtype])
 
 
 def prepare_k2(x_seq, weight, bias, *, scale=None, shift=None,
-               out_dtype=None, kernel="K2"):
+               out_dtype=None, kernel="K2", return_v=False):
     """Check one K2 launch on CUDA tensors (x [T, ...] with an optional
     per-channel affine on the last axis, W and b float32 or bfloat16, scale
     and shift float32) and return ``(launch, out)``: each call of
     ``launch()`` runs the kernel once into ``out``, the 0/1 spikes in
     ``out_dtype`` (default: the input's), and raises if the launch fails;
-    it counts nothing. ``chip_smoke.py`` times ``launch``, the kernel
-    alone."""
+    it counts nothing. With ``return_v`` ``out`` is ``(spikes, h)``, the
+    kernel also writing the float32 potential ``h`` in ``x_seq``'s shape.
+    ``chip_smoke.py`` times ``launch``, the kernel alone."""
     out_dtype = out_dtype or x_seq.dtype
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"{kernel} writes float32 or bfloat16, got "
@@ -175,22 +183,26 @@ def prepare_k2(x_seq, weight, bias, *, scale=None, shift=None,
     _forward_only(kernel, (x_seq, weight, bias, scale, shift))
     x = x_seq.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    args = k2_args(x, weight, bias, scale, shift, out)
+    h = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+         if return_v else None)
+    args = k2_args(x, weight, bias, scale, shift, out, h)
     fn = _lib().psn_fwd
 
     def launch():
         _launch(kernel, fn, args, x.device)
-        return x, out   # alive as long as the closure
+        return x, out, h   # alive as long as the closure
 
-    return launch, out
+    return launch, ((out, h) if return_v else out)
 
 
 def launch_k2(x_seq, weight, bias, *, scale=None, shift=None, out_dtype=None,
-              kernel="K2"):
-    """Launch K2's kernel once (:func:`prepare_k2`) and return the spikes.
-    Counts nothing: each entry that launches it keeps its own count."""
+              kernel="K2", return_v=False):
+    """Launch K2's kernel once (:func:`prepare_k2`) and return the spikes
+    (with ``return_v``, the spikes and the float32 potential). Counts
+    nothing: each entry that launches it keeps its own count."""
     launch, out = prepare_k2(x_seq, weight, bias, scale=scale, shift=shift,
-                             out_dtype=out_dtype, kernel=kernel)
+                             out_dtype=out_dtype, kernel=kernel,
+                             return_v=return_v)
     launch()
     return out
 
@@ -219,11 +231,29 @@ def _(x_seq, weight, bias, scale, shift, out_dtype):
     return x_seq.new_empty(x_seq.shape, dtype=out_dtype)
 
 
-def fused_affine_psn(x_seq, weight, bias, *, scale=None, shift=None):
+def fused_affine_psn(x_seq, weight, bias, *, scale=None, shift=None,
+                     return_v=False):
     """PSN spikes of [T, ..., C] (optional per-channel affine on the last
     axis): K2 for a CUDA tensor, :func:`psn_spike` for a CPU tensor;
     while traced, :data:`fused_affine_psn_op`. Forward only: call it
-    through :func:`affine_psn` for a gradient."""
+    through :func:`affine_psn` for a gradient.
+
+    ``return_v`` (the membrane telemetry) returns ``(spikes, h)``, the
+    potential in float32 (float64 stays float64 on the CPU): K2 writes it
+    from the registers that thresholded it. The custom op has no such
+    output, so a traced call with ``return_v`` raises."""
+    if return_v:
+        if torch.compiler.is_compiling():
+            raise NotImplementedError("K2's membrane output is eager only: "
+                                      "an exported program collects no "
+                                      "telemetry")
+        if x_seq.device.type == "cpu":
+            return psn_spike(x_seq, weight, bias, scale=scale, shift=shift,
+                             return_v=True)
+        out = launch_k2(x_seq, weight, bias, scale=scale, shift=shift,
+                        return_v=True)
+        fused_affine_psn.launches += 1
+        return out
     if torch.compiler.is_compiling():
         _forward_only("K2", (x_seq, weight, bias, scale, shift))
         return fused_affine_psn_op(x_seq, weight, bias, scale, shift,
@@ -420,13 +450,23 @@ class FusedAffinePSN(torch.autograd.Function):
 
 
 def affine_psn(x_seq, weight, bias, *, scale=None, shift=None,
-               surrogate="atan", alpha=2.0, impl=KERNELS):
+               surrogate="atan", alpha=2.0, impl=KERNELS, return_v=False):
     """A differentiable PSN site (:class:`FusedAffinePSN`). With no gradient
     to record (serving runs under ``inference_mode``) it calls the forward
-    alone, sparing the host the Function's dispatch at every site."""
-    if not torch.is_grad_enabled() or not any(
-            t is not None and t.requires_grad
-            for t in (x_seq, weight, bias, scale, shift)):
+    alone, sparing the host the Function's dispatch at every site.
+    ``return_v`` (the membrane telemetry, forward only) also returns the
+    potential ``h``."""
+    recording = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x_seq, weight, bias, scale, shift))
+    if return_v:
+        if recording:
+            raise NotImplementedError("the PSN membrane output is forward "
+                                      "only: collect it under "
+                                      "torch.no_grad() or inference_mode()")
+        return impl.forward(x_seq, weight, bias, scale=scale, shift=shift,
+                            return_v=True)
+    if not recording:
         return impl.forward(x_seq, weight, bias, scale=scale, shift=shift)
     return FusedAffinePSN.apply(x_seq, weight, bias, scale, shift,
                                 surrogate, alpha, impl)

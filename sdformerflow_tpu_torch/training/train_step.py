@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..losses import flow_loss_supervised
-from ..models.spiking_layers import TorchBatchNorm
+from ..models.spiking_layers import TorchBatchNorm, collect_sites
 from ..ops.hopper_embed import fused_embed_forward
 from ..ops.hopper_voxel import voxel_batch_signed
 from ..ops.normalization import encode_input
@@ -189,7 +189,8 @@ class EvalStep(nn.Module):
 def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                    norm_input="minmax", spike_th=None, compute_dtype=None,
                    voxelize=None, crop=None, use_batch_stats=False,
-                   fused_embed=False, num_steps=None):
+                   fused_embed=False, num_steps=None,
+                   collect_spike_rates=False):
     """Return ``eval_step(chunk) -> [flow]`` (coarse -> fine, float32).
 
     ``chunk``: [B, bins, H, W] signed voxels (or [B, bins, 2, H, W]) on the
@@ -218,9 +219,23 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
     take); else it raises. A model that ``training/bn_folding.py:fold_model``
     folded runs here as any other (K1 and K2 on the folded weights).
 
+    ``collect_spike_rates=True`` returns ``(flows, sites)``: ``sites`` the
+    neuron telemetry of the forward (``models/spiking_layers.py:
+    collect_sites``), keyed as ``scripts/eval_dsec.py`` writes it
+    (``".../<site>/spike_rate/[i]"`` and, with ``cfg.store_v_seq``,
+    ``".../<site>/membrane/[i]"``) in JAX's order, the values device
+    tensors. The MS attention then runs its module form and fires
+    ``attn_sn``, so no K1 is launched. With ``fused_embed`` it raises: K4 and
+    K4a record no site (JAX's Pallas embed sows none either, and its energy
+    join then raises on the missing embed sites).
+
     The step runs :class:`EvalStep` (``eval_step.module``) under
     ``torch.inference_mode()``; ``eval_step.model`` is the (cast) model.
     """
+    if fused_embed and collect_spike_rates:
+        raise ValueError("fused_embed collects no telemetry: K4 and K4a "
+                         "record no neuron site; collect on the module "
+                         "embed (fused_embed=False)")
     if fused_embed:
         if use_batch_stats or num_steps is None:
             raise ValueError("fused_embed needs running-statistics BN "
@@ -247,7 +262,11 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                           generator=torch.Generator(dev).manual_seed(0))
             elif model.training:
                 model.eval()
-            return module(chunk)
+            if not collect_spike_rates:
+                return module(chunk)
+            with collect_sites(model) as sites:
+                flows = module(chunk)
+            return flows, sites
 
     eval_step.model = model
     eval_step.module = module

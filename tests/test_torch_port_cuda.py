@@ -120,6 +120,59 @@ def test_k2_matches_plain_bitwise(dev, dtype, affine):
         hopper_psn.fused_affine_psn(x, w.clone().requires_grad_(), b, **kw)
 
 
+# (T, site shape after T): a C <= 32 site with ragged columns, and en4
+# shapes at 288x384 (the embed's [1, 144, 192, 48] head site and a stage-0
+# attention site, T = 2 windows of [440, 9, 9, 96])
+K2_H_CASES = [(4, (1, 7, 9, 24)), (10, (1, 144, 192, 48)),
+              (2, (440, 9, 9, 96))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,shape", K2_H_CASES)
+def test_k2_membrane_output_matches_twin(dev, dtype, T, shape):
+    """K2 with its potential output against ``psn_neuron(return_v=True)``:
+    on dyadic inputs the spikes and h bit for bit; on Gaussian inputs at
+    most 1e-3 of the spikes flipped and h within 1e-6 of the twin's largest
+    |h|; the spikes equal those of the launch without h."""
+    gen = torch.Generator().manual_seed(T + shape[-1])
+    C = shape[-1]
+    for dyadic in (True, False):
+        if dyadic:
+            x = _grid((T,) + shape, 0.25, -2.0, 2.0, gen).to(dev, dtype)
+            w = _grid((T, T), 0.125, -1.0, 1.0, gen).to(dev)
+            b = _grid((T, 1), 0.25, -1.0, 1.0, gen).to(dev)
+            kw = dict(scale=_grid((C,), 0.25, 0.25, 2.0, gen).to(dev),
+                      shift=_grid((C,), 0.25, -1.0, 1.0, gen).to(dev))
+        else:
+            x = torch.randn((T,) + shape, generator=gen).to(dev, dtype)
+            w = (torch.randn(T, T, generator=gen) * 0.4).to(dev)
+            b = (torch.randn(T, 1, generator=gen) * 0.4).to(dev)
+            kw = dict(scale=(torch.rand(C, generator=gen) + 0.5).to(dev),
+                      shift=torch.randn(C, generator=gen).to(dev))
+        with torch.inference_mode():
+            before = hopper_psn.fused_affine_psn.launches
+            spikes, h = hopper_psn.fused_affine_psn(x, w, b, return_v=True,
+                                                    **kw)
+            assert hopper_psn.fused_affine_psn.launches == before + 1
+            want_s, want_h = hopper_psn.psn_spike(x, w, b, return_v=True,
+                                                  **kw)
+            plain = hopper_psn.fused_affine_psn(x, w, b, **kw)
+            torch.cuda.synchronize()
+        assert h.dtype == torch.float32 and h.shape == x.shape
+        assert spikes.dtype == dtype and torch.equal(spikes, plain)
+        if dyadic:
+            assert torch.equal(spikes, want_s) and torch.equal(h, want_h)
+            assert 0.0 < spikes.float().mean().item() < 1.0
+        else:
+            flips = (spikes != want_s).float().mean().item()
+            assert flips <= 1e-3
+            err = (h - want_h).abs().max().item()
+            assert err <= 1e-6 * want_h.abs().max().item()
+    with pytest.raises(NotImplementedError, match="forward only"):
+        hopper_psn.affine_psn(x, w.clone().requires_grad_(), b,
+                              return_v=True, **kw)
+
+
 K3_ENTRIES = {
     "signed": (hopper_voxel.voxel_grid_signed_k3, voxel.voxel_grid_signed,
                "num_bins", {}),

@@ -53,18 +53,22 @@ def _accepted(argtypes, args):
         t.from_param(a)
 
 
+@pytest.mark.parametrize("membrane", [False, True])
 @pytest.mark.parametrize("affine", [False, True])
-def test_k2_arguments_take_the_declared_types(affine):
+def test_k2_arguments_take_the_declared_types(affine, membrane):
     T, C = 5, 12
     x = torch.zeros(T, 3, 7, C, dtype=torch.bfloat16)
     w, b = torch.zeros(T, T), torch.zeros(T, 1)
     sc = sh = torch.ones(C) if affine else None
     out = torch.empty(x.shape, dtype=torch.float32)
-    args = hopper_psn.k2_args(x, w, b, sc, sh, out)
+    h = torch.empty(x.shape, dtype=torch.float32) if membrane else None
+    args = hopper_psn.k2_args(x, w, b, sc, sh, out, h)
     _accepted(hopper_psn.ARGTYPES["psn_fwd"], args + (0,))   # + the stream
     # n, steps, channels and the dtype codes of x, W and out
-    assert args[6:] == (3 * 7 * C, T, C, 1, 0, 0)
+    assert args[7:] == (3 * 7 * C, T, C, 1, 0, 0)
     assert (args[3] is None) == (not affine)
+    # the potential's output: a null pointer when not asked for
+    assert (args[6] is None) == (not membrane)
 
 
 @pytest.mark.parametrize("affine", [False, True])
