@@ -230,7 +230,29 @@ Phases (any failure exits non-zero):
    attention-map shapes, windows/s) beside the same run without the flags.
    The JSON line ``{"telemetry": ...}`` before the kernels line holds
    them, and each kernel entry's ``launches_telemetry`` the collecting
-   request's launches.
+   request's launches;
+19. data parallelism: ``FlowServer(devices=[cuda:0] * 2)`` on the en4 bf16
+   server coalescing queued voxel and 0.6-1.0 x 2^20-event requests two a
+   batch: a batched forward's K1 and K2 outputs against its rows' batch-1
+   forwards (at most 1e-3 of the spikes flipped), K3 a row of an events
+   group against its twin, K1 12, K2 45 launches a batched forward and K3
+   one a row, windows/s of 64 queued requests beside ``devices=None``;
+   the en4 float32 train step of a global batch of 2 at 288x384 over two
+   gloo ranks on the one card (``torch.multiprocessing``, one row a rank,
+   the spiking swin blocks' attention on the gathered batch) against one
+   process at batch 2 on the same card, whose neurons are given the DP
+   step's spikes (so that only the float32 summation order differs, and a
+   wrong gradient reduction shows): the loss, every neuron call's own
+   spikes against the DP step's (at most 1e-3 flipped), the parameters'
+   moves (SGD) and running statistics, K2 and K2b 93 launches a rank a
+   step (and in the one process) each held against its twin, the collectives
+   a step and their time, step p50, device busy and peak memory a rank;
+   ``train_dsec --synthetic --max_steps 4`` plainly and under
+   ``torch.distributed.run --nproc_per_node 1`` (NCCL), with deterministic
+   kernels: metrics.jsonl and the checkpoint equal bit for bit. The JSON
+   line ``{"dp": ...}`` before the kernels line holds them, and each
+   kernel entry's ``launches_dp_step`` and ``launches_dp_serving`` the
+   launches of those runs.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -969,13 +991,13 @@ def phase_k3(torch, dev):
 
 # ------------------------------------------------------------ phase 5
 
-def device_ms_per_call(torch, run, n):
+def device_ms_per_call(torch, run, n, trace_name="smoke_forward_trace"):
     """Device time per call of ``run``: the union of the kernel intervals
     that ``torch.profiler`` records over ``n`` calls, divided by ``n``.
     None if the profiler records no kernel."""
     from torch.profiler import ProfilerActivity, profile
     trace = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
-                         "smoke_forward_trace.json")
+                         trace_name + ".json")
     os.makedirs(os.path.dirname(trace), exist_ok=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -5475,6 +5497,672 @@ def phase_telemetry(torch, dev, config, state_dict, card):
     return tel
 
 
+# ----------------------------------------------------------- phase 19
+# data parallelism: the en4 float32 step of a global batch of 2 over two
+# gloo ranks on the one card (one row each) against one process taking
+# the batch of 2; the trainer under torchrun (one rank, NCCL) against the
+# plain trainer; FlowServer batching queued requests over two entries of
+# the one card
+
+DP_WORLD = 2
+DP_TIMED_STEPS = 3        # timed DP steps after the checked and counted ones
+DP_TIMEOUT_S = 600
+DP_TRAIN_STEPS = 4        # train_dsec --max_steps of the torchrun A/B
+# SGD: an update moves each parameter by lr x its (momentum) gradient, so
+# the post-step parameters compare the gradients
+DP_OPT = dict(name="SGD", lr=1e-3, scheduler="constant", clip_grad=100.0)
+# the one-process step is taken with the DP step's spikes at every neuron
+# call (see forced_spikes), so that only the float32 summation order
+# differs: its loss, relative
+DP_LOSS_TOL = 1e-4
+# the largest difference of a parameter's move over the largest move, and
+# of a running statistic over its largest value
+DP_DELTA_TOL = 1e-3
+DP_STATS_TOL = 1e-4
+DP_PSN_SITES = 93         # K2 and K2b launches of an en4 train step
+DP_COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "barrier")
+# deterministic kernels for a bit-for-bit comparison of two trainer runs:
+# cuDNN's deterministic algorithms and a sorted index_add (the nearest
+# upsample's backward); the trainer module itself runs as __main__
+DETERMINISTIC_TRAINER = r"""
+import runpy, sys, warnings
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+warnings.simplefilter("once")
+sys.argv = ["train_dsec"] + sys.argv[1:]
+runpy.run_module("sdformerflow_tpu_torch.train_dsec", run_name="__main__")
+"""
+
+
+class CollectiveLog:
+    """While entered, every ``torch.distributed`` collective of the
+    process is counted and timed (host clock, a device sync either side),
+    by name."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.saved = {n: getattr(dist, n) for n in DP_COLLECTIVES}
+
+        def wrap(name, fn):
+            def timed(*args, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.torch.cuda.synchronize()
+                t = next((a for a in args if hasattr(a, "numel")), None)
+                self.calls.append((name, (time.perf_counter() - t0) * 1e3,
+                                   0 if t is None
+                                   else t.numel() * t.element_size()))
+                return out
+            return timed
+        for name, fn in self.saved.items():
+            setattr(dist, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+    def summary(self):
+        out = {}
+        for name, ms, nbytes_ in self.calls:
+            c = out.setdefault(name, {"count": 0, "ms": 0.0, "bytes": 0})
+            c["count"] += 1
+            c["ms"] += ms
+            c["bytes"] += nbytes_
+        return out
+
+
+def spike_record(model, store):
+    """Forward hooks that append each neuron call's spikes (output != 0,
+    bool, on the device) to ``store``; returns the handles."""
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    return [m.register_forward_hook(
+        lambda mod, args, out: store.append(out.detach() != 0))
+        for m in model.modules() if isinstance(m, SpikingNeuron)]
+
+
+def rank_spikes(torch, spikes, group, world):
+    """Every rank's recorded spikes on the host, ``[rank][call]`` bool
+    tensors: one all-gather of each rank's calls packed as bytes (every
+    rank records calls of the same shapes)."""
+    import torch.distributed as dist
+    flat = torch.cat([s.reshape(-1) for s in spikes]).to(torch.uint8).cpu()
+    parts = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(parts, flat, group=group)
+    out = []
+    for part in parts:
+        calls, at = [], 0
+        for s in spikes:
+            calls.append(part[at:at + s.numel()].view(s.shape).bool())
+            at += s.numel()
+        out.append(calls)
+    return out
+
+
+def forced_spikes(torch, model, records, sites):
+    """Forward hooks that give each neuron call of ``model`` (one process,
+    the global batch) the DP run's spikes at that call: the ranks' rows
+    (``records[rank][call]``) joined on the batch axis, or rank 0's where
+    each rank computed the whole batch (the gathered attention). The
+    gradient still flows through the neuron's own surrogate (straight
+    through), so the step differs from the DP step by the float32
+    summation order alone, and a wrong gradient reduction shows in the
+    parameters' moves. Each call's (flipped, spikes, shape) of its own
+    spikes against the DP run's goes to ``sites``. Returns the handles."""
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    world = len(records)
+
+    def hook(mod, args, out):
+        i = len(sites)
+        check(i < len(records[0]), f"the one-process step fires more than "
+              f"the DP step's {len(records[0])} neuron calls")
+        parts = [rec[i] for rec in records]
+        if parts[0].shape == out.shape:
+            want = parts[0]
+        else:
+            axes = [a for a, (p, o) in enumerate(zip(parts[0].shape,
+                                                     out.shape)) if p != o]
+            check(len(axes) == 1 and parts[0].dim() == out.dim()
+                  and parts[0].shape[axes[0]] * world == out.shape[axes[0]],
+                  f"neuron call {i}: the DP run's spikes "
+                  f"{tuple(parts[0].shape)} against {tuple(out.shape)}")
+            want = torch.cat(parts, axes[0])
+        want = want.to(out.device)
+        own = out.detach() != 0
+        check(torch.equal(out.detach(), own.to(out.dtype)),
+              f"neuron call {i} fires values other than 0 and 1")
+        sites.append((int((own != want).sum()), own.numel(), list(out.shape)))
+        return want.to(out.dtype) + (out - out.detach())
+    return [m.register_forward_hook(hook) for m in model.modules()
+            if isinstance(m, SpikingNeuron)]
+
+
+def checked_psn(P, flips, errs):
+    """PSNImpl that launches K2 and K2b and holds each launch against its
+    plain twin on the same input: K2's flipped spikes, K2b's largest |d|
+    over the twin's largest |value| per output."""
+    def fwd(x, w, b, *, scale=None, shift=None, **kw):
+        y = P.fused_affine_psn(x, w, b, scale=scale, shift=shift)
+        want = P.psn_spike(x, w, b, scale=scale, shift=shift)
+        flips[0] += int((y != want).sum())
+        flips[1] += y.numel()
+        return y
+
+    def bwd(x, g, w, b, **kw):
+        got = P.fused_psn_backward(x, g, w, b, **kw)
+        for name, e in k2b_errors(got, P.psn_backward_plain(
+                x, g, w, b, **kw)).items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        return got
+    return P.PSNImpl(fwd, bwd)
+
+
+def dp_trainer(torch, dev, config, state_dict, group):
+    """(model, optimizer, train step) of the en4 config in float32 with
+    DP_OPT and ``group``."""
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.training.config import build_configs
+    from sdformerflow_tpu_torch.training.optim import build_optimizer
+    from sdformerflow_tpu_torch.training.train_step import make_train_step
+    model_cfg, swin, cfg = build_configs(config)
+    model = get_model(config["model"]["name"], model_cfg, swin, cfg,
+                      train=True)
+    model.load_state_dict(state_dict)
+    model.float().to(dev)
+    opt = build_optimizer(model.named_parameters(), **DP_OPT)
+    step = make_train_step(model, opt,
+                           norm_input=config["model"]["norm_input"],
+                           generator=torch.Generator(dev).manual_seed(SEED),
+                           group=group)
+    return model, opt, step
+
+
+def dp_rank_work(torch, dev, rank, world, config, state_dict, hw):
+    """One rank's share of phase 19's DP step, checked against one process
+    on the same card (which this rank runs too, on the whole batch)."""
+    import functools
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.parallel import multihost
+    group = multihost.world_group()
+    batch = train_batch(torch, dev, hw, SEED + 40, batch=world)
+    rows = {k: v[rank:rank + 1] for k, v in batch.items()}
+    start = {k: v.to(dev) for k, v in state_dict.items()}
+
+    # the checked DP step: K2 / K2b against their twins, spikes recorded
+    model, opt, step = dp_trainer(torch, dev, config, state_dict, group)
+    dp_spikes, k2_flips, k2b_errs = [], [0, 0], {}
+    handles = spike_record(model, dp_spikes)
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    impl = checked_psn(P, k2_flips, k2b_errs)
+    with site_functions(functools.partial(P.affine_psn, impl=impl)):
+        dp_loss = step(rows)["loss"].item()
+    launches = {"K2": P.fused_affine_psn.launches,
+                "K2b": P.fused_psn_backward.launches}
+    for h in handles:
+        h.remove()
+    n_calls = len(dp_spikes)
+    after_dp = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    records = rank_spikes(torch, dp_spikes, group, world)
+    del dp_spikes
+
+    # the counted step: the collectives and their time
+    with CollectiveLog(torch) as coll:
+        step(rows)
+    collectives = coll.summary()
+    # the timed steps, the card's busy time and the peak memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(rows)["loss"].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy = device_ms_per_call(torch, lambda: step(rows), 1,
+                              f"smoke_dp_rank{rank}_trace")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # one process on the whole batch, from the same state, its neurons
+    # given the DP step's spikes
+    model, opt, step = dp_trainer(torch, dev, config, state_dict, None)
+    site = []
+    handles = forced_spikes(torch, model, records, site)
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    one_loss = step(batch)["loss"].item()
+    one_launches = {"K2": P.fused_affine_psn.launches,
+                    "K2b": P.fused_psn_backward.launches}
+    for h in handles:
+        h.remove()
+    after_one = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt, step, records
+    check(len(site) == n_calls > 0,
+          f"rank {rank}: {n_calls} neuron calls in the DP step against "
+          f"{len(site)} in one process")
+    flipped, total = sum(s[0] for s in site), sum(s[1] for s in site)
+    first = [[i] + list(s) for i, s in enumerate(site) if s[0]][:6]
+
+    def moved(after):
+        return {k: after[k].double() - start[k].double() for k in start
+                if after[k].is_floating_point()}
+    d_dp, d_one = moved(after_dp), moved(after_one)
+    params = [k for k in d_one if not k.endswith(("running_mean",
+                                                  "running_var"))]
+    top = max(d_one[k].abs().max().item() for k in params)
+    delta_rel = max((d_dp[k] - d_one[k]).abs().max().item()
+                    for k in params) / max(top, 1e-300)
+    stats_rel = max(rel_err(after_dp[k], after_one[k])[1] for k in start
+                    if k.endswith(("running_mean", "running_var")))
+    torch.cuda.empty_cache()
+    return dict(
+        rank=rank, loss=dp_loss, one_process_loss=one_loss,
+        loss_rel=abs(dp_loss - one_loss) / max(abs(one_loss), 1e-300),
+        spikes_flipped=flipped, spikes=total, spike_sites=len(site),
+        sites_with_flips=sum(s[0] > 0 for s in site), first_flips=first,
+        param_delta_rel=delta_rel, running_stats_rel=stats_rel,
+        launches=launches, one_process_launches=one_launches,
+        k2_twin_flips=k2_flips, k2b_twin_err=k2b_errs,
+        collectives=collectives, step_ms=ms,
+        p50_ms=float(np.percentile(ms, 50)), device_ms=busy,
+        peak_mem_gib=peak)
+
+
+def dp_rank(index, world, out_dir, config_path, hw):
+    """A spawned rank of phase 19 (``torch.multiprocessing``): joins the
+    gloo group through a file in ``out_dir`` on ``cuda:0`` (two ranks on
+    one card: NCCL refuses that) and writes its results there."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sdformerflow_tpu_torch.parallel import multihost
+    from sdformerflow_tpu_torch.training.config import load_config
+    out = os.path.join(out_dir, f"rank{index}.json")
+    try:
+        multihost.initialize(backend="gloo",
+                             init_method=f"file://{out_dir}/rendezvous",
+                             world_size=world, rank=index,
+                             timeout_s=DP_TIMEOUT_S)
+        dev = multihost.local_device("cuda:0")
+        multihost.establish_collectives(multihost.world_group())
+        _, state_dict = load_en4(torch)
+        res = dp_rank_work(torch, dev, index, world,
+                           load_config(config_path), state_dict, hw)
+        res["foreign_modules"] = sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "sdformerflow_tpu"))
+        with open(out, "w") as f:
+            json.dump(res, f)
+    except BaseException as e:
+        with open(out + ".err", "w") as f:
+            f.write(f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        multihost.leave()
+
+
+def dp_step(torch, card):
+    """The two-rank en4 DDP step against one process (see dp_rank_work)."""
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                           "smoke_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dp_rank, args=(DP_WORLD, out_dir, CONFIG,
+                                            TRAIN_HW),
+                             nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise SmokeFailure("the DP ranks did not finish in "
+                                   f"{DP_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        errs = [open(os.path.join(out_dir, n)).read()
+                for n in sorted(os.listdir(out_dir)) if n.endswith(".err")]
+        raise SmokeFailure(f"a DP rank failed: {errs or e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    coll = ranks[0]["collectives"]
+    log(f"[19] en4 DDP step, float32 (TF32 off), global batch {DP_WORLD} "
+        f"at {TRAIN_HW[0]}x{TRAIN_HW[1]}, one row a rank, {DP_WORLD} gloo "
+        f"ranks on cuda:0 ({wall:.1f} s with start-up), against one process "
+        f"at batch {DP_WORLD} on the same card given the DP step's spikes at "
+        f"every neuron call, on {card}:")
+    for r in ranks:
+        log(f"[19]   rank {r['rank']}: loss {r['loss']:.7g} (one process "
+            f"{r['one_process_loss']:.7g}, rel {r['loss_rel']:.2e}); the "
+            f"one process's own spikes differ from the DP step's at "
+            f"{r['spikes_flipped']} of {r['spikes']} ({r['sites_with_flips']}"
+            f" of {r['spike_sites']} neuron calls); parameter moves "
+            f"{r['param_delta_rel']:.2e} of the largest away, running "
+            f"statistics {r['running_stats_rel']:.2e}; K2 "
+            f"{r['launches']['K2']}, K2b {r['launches']['K2b']} launches a "
+            f"step (one process {r['one_process_launches']['K2']}, "
+            f"{r['one_process_launches']['K2b']}), K2 flipped "
+            f"{r['k2_twin_flips'][0]} of {r['k2_twin_flips'][1]} against its "
+            f"twin, K2b largest |d| / twin's largest "
+            f"{max(r['k2b_twin_err'].values()):.2e}; step p50 "
+            f"{r['p50_ms']:.1f} ms ({DP_TIMED_STEPS} steps: "
+            + ", ".join(f"{v:.1f}" for v in r["step_ms"])
+            + f"), device busy " + ("not measured" if r["device_ms"] is None
+                                    else f"{r['device_ms']:.1f} ms")
+            + f", peak {r['peak_mem_gib']:.2f} GiB; the first neuron calls "
+            f"with a flip [call, flipped, spikes, shape]: {r['first_flips']}")
+    log(f"[19]   collectives a step (rank 0; host clock with a sync either "
+        f"side, in a separate step): " + ", ".join(
+            f"{k} {v['count']} ({v['ms']:.1f} ms, {v['bytes'] / 2 ** 20:.1f}"
+            f" MiB)" for k, v in sorted(coll.items())) + f" [{card}]")
+    for r in ranks:
+        rk = r["rank"]
+        check(r["foreign_modules"] == [], f"rank {rk} imported "
+              f"{r['foreign_modules']}")
+        want = {"K2": DP_PSN_SITES, "K2b": DP_PSN_SITES}
+        check(r["launches"] == want and r["one_process_launches"] == want,
+              f"rank {rk}: DP step launches {r['launches']}, one process "
+              f"{r['one_process_launches']}, expected {want}")
+        check(r["spikes_flipped"] <= MAX_FLIP_SHARE * r["spikes"],
+              f"rank {rk}: {r['spikes_flipped']} of {r['spikes']} spikes "
+              f"of one process differ from the DP step's")
+        check(r["loss_rel"] <= DP_LOSS_TOL,
+              f"rank {rk}: the DP loss {r['loss']} against one process's "
+              f"{r['one_process_loss']} (rel {r['loss_rel']:.3g})")
+        check(r["param_delta_rel"] <= DP_DELTA_TOL,
+              f"rank {rk}: the parameters moved {r['param_delta_rel']:.3g} "
+              "of the largest move away from one process's moves")
+        check(r["running_stats_rel"] <= DP_STATS_TOL,
+              f"rank {rk}: the running statistics "
+              f"{r['running_stats_rel']:.3g} away from one process's")
+        f, n = r["k2_twin_flips"]
+        check(n > 0 and f <= MAX_FLIP_SHARE * n,
+              f"rank {rk}: K2 flipped {f} of {n} spikes against its twin")
+        check(r["k2b_twin_err"].get("dx", 1.0) <= K2B_TOL,
+              f"rank {rk}: K2b against its twin {r['k2b_twin_err']}")
+    check(ranks[0]["loss"] == ranks[1]["loss"],
+          f"the ranks' global losses differ: {[r['loss'] for r in ranks]}")
+    return dict(ranks=ranks, wall_s=wall, world=DP_WORLD)
+
+
+def torchrun_ab(torch, card):
+    """``train_dsec --synthetic --max_steps 4`` on the en4 config twice,
+    at once: plainly and under ``torch.distributed.run`` (one rank,
+    NCCL); both with deterministic kernels. Their metrics.jsonl (all but
+    the clocks) and checkpoints must be equal bit for bit."""
+    import shutil
+    base = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                        "smoke_torchrun")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    launcher = os.path.join(base, "deterministic_train_dsec.py")
+    with open(launcher, "w") as f:
+        f.write(DETERMINISTIC_TRAINER)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    args = ["--config", CONFIG, "--synthetic", "--max_steps",
+            str(DP_TRAIN_STEPS), "--run_dir"]
+    cmds = {"plain": [sys.executable, launcher] + args + [
+                os.path.join(base, "plain")],
+            "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node", "1", launcher]
+            + args + [os.path.join(base, "torchrun")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            outs[k] = p.communicate(timeout=DP_TIMEOUT_S)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    wall = time.perf_counter() - t0
+    for k, p in procs.items():
+        check(p.returncode == 0, f"{k} trainer exit {p.returncode}: "
+              + outs[k][-3000:])
+    runs = {}
+    for k in cmds:
+        d = os.path.join(base, k)
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(d, "model_info.json")) as f:
+            info = json.load(f)
+        runs[k] = dict(values=[(r["name"], r["step"], r["value"])
+                               for r in recs
+                               if r["name"] in ("train_loss", "valid_loss",
+                                                "skipped_updates")],
+                       info=info,
+                       ckpt=torch.load(os.path.join(d, "ckpt",
+                                                    "epoch_000000.pt"),
+                                       map_location="cpu",
+                                       weights_only=True))
+    check(runs["torchrun"]["info"]["backend"] == "nccl"
+          and runs["torchrun"]["info"]["processes"] == 1
+          and runs["plain"]["info"]["backend"] is None,
+          f"model_info: {runs['torchrun']['info']}, {runs['plain']['info']}")
+    a, b = runs["plain"], runs["torchrun"]
+    check(a["values"] and a["values"] == b["values"],
+          f"metrics.jsonl differ: {a['values']} against {b['values']}")
+    sd_a, sd_b = a["ckpt"]["model"], b["ckpt"]["model"]
+    same_model = all(torch.equal(v, sd_b[k]) for k, v in sd_a.items())
+    check(same_model and a["ckpt"]["step"] == b["ckpt"]["step"],
+          "the two trainers' checkpoints differ")
+    warned = [ln for ln in outs["plain"].splitlines()
+              if "deterministic" in ln.lower()][:3]
+    log(f"[19] train_dsec --synthetic --max_steps {DP_TRAIN_STEPS} (en4, "
+        "deterministic kernels) plainly and under torch.distributed.run "
+        f"--nproc_per_node 1 (backend {b['info']['backend']}), at once, "
+        f"{wall:.1f} s: metrics.jsonl equal bit for bit ("
+        + ", ".join(f"{n}[{s}] {v!r}" for n, s, v in a["values"])
+        + f"), checkpoints equal bit for bit; warnings {warned} [{card}]")
+    return dict(values=a["values"], seconds=wall,
+                backend=b["info"]["backend"])
+
+
+def dp_serving(torch, dev, config, state_dict, card):
+    """FlowServer(devices=[cuda:0] * 2) on en4 bf16: queued voxel and
+    events requests coalesced two a batch, each flow against batch-1
+    serving (every spike of a batched forward against the batch-1
+    forwards' of its rows), launches a batched forward, windows/s beside
+    devices=None."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.ops import hopper_voxel as V
+    from sdformerflow_tpu_torch.serving import FlowServer
+    from sdformerflow_tpu_torch.training.train_step import voxelize_batch
+    hw = tuple(config["loader"]["crop"])
+    voxels = voxel_requests(N_QUEUED, 10, hw, SEED + 60)
+    windows = event_windows(8, 0.6, 1.0, SEED + 61)
+    out = {}
+    with FlowServer(config, state_dict, device=dev, bf16=True) as one, \
+            FlowServer(config, state_dict, device=dev, bf16=True,
+                       devices=[dev] * 2, max_pending=2 * N_QUEUED,
+                       batch_window_s=0.05) as batched:
+        for s in (one, batched):
+            s.warmup(K3_EVENTS)
+        pair0 = batched_pair(torch, dev, batched, one, voxels[:2])
+        check(pair0["spikes"] > 0
+              and pair0["flipped"] <= MAX_FLIP_SHARE * pair0["spikes"],
+              f"batched serving flipped {pair0['flipped']} of "
+              f"{pair0['spikes']} spikes against batch-1 serving")
+        # K3 a row of an events group, against its plain twin
+        buf = batched._pack_group(windows[:2], 2)
+        ev = {k: buf[:, i] for i, k in enumerate("xytp")}
+        ev["valid"] = buf[:, 4] != 0
+        vox_kw = dict(num_bins=10, height=SENSOR[0], width=SENSOR[1])
+        k3_before = V.voxel_k3.launches
+        grid = voxelize_batch({k: v.to(dev) for k, v in ev.items()},
+                              **vox_kw)
+        check(V.voxel_k3.launches == k3_before + 2,
+              f"K3 launched {V.voxel_k3.launches - k3_before} times for 2 "
+              "rows")
+        k3_err = (grid.cpu() - voxelize_batch(ev, **vox_kw)).abs().max()
+        check(float(k3_err) <= 1e-4, f"K3 against its twin: {k3_err}")
+        # queued requests: windows/s, launches a batched forward, flows
+        for label, server in (("devices=None", one),
+                              (f"devices=[{dev}] * 2", batched)):
+            for kind, reqs in (("voxel", voxels), ("events", windows * 8)):
+                A.qk_attn_interior.launches = 0
+                P.fused_affine_psn.launches = V.voxel_k3.launches = 0
+                t0 = time.perf_counter()
+                futs = [server.submit(r) for r in reqs]
+                flows = [f.result(timeout=600) for f in futs]
+                wall = time.perf_counter() - t0
+                counts = dict(K1=A.qk_attn_interior.launches,
+                              K2=P.fused_affine_psn.launches,
+                              K3=V.voxel_k3.launches)
+                for fl in flows:
+                    check(fl.shape == (2,) + hw and np.isfinite(fl).all(),
+                          f"{label} {kind}: flow {fl.shape}")
+                out.setdefault(label, {})[kind] = dict(
+                    requests=len(reqs), windows_per_s=len(reqs) / wall,
+                    launches=counts, flows=flows)
+        plain, bat = out["devices=None"], out[f"devices=[{dev}] * 2"]
+        n_vox, n_ev = len(voxels), len(windows) * 8
+        forwards = {"voxel": n_vox // 2, "events": n_ev // 2}
+        for kind, n in forwards.items():
+            c = bat[kind]["launches"]
+            check(c["K1"] == 12 * n and c["K2"] == 45 * n,
+                  f"batched {kind}: {c} for {n} forwards of 2 rows")
+        check(bat["events"]["launches"]["K3"] == n_ev,
+              f"batched events: K3 {bat['events']['launches']['K3']} for "
+              f"{n_ev} rows")
+        epe = {kind: [float(np.sqrt(((a - b) ** 2).sum(0)).mean())
+                      for a, b in zip(bat[kind]["flows"],
+                                      plain[kind]["flows"])]
+               for kind in forwards}
+        # a queued voxel request whose flow is not its batch-1 flow: its
+        # pair (the groups are queued pairs) again, spike by spike; the
+        # forward is chaotic, so the first differing call is held to the
+        # rounding rule
+        redo = {}
+        for i in sorted({i // 2 for i, e in enumerate(epe["voxel"]) if e}):
+            r = batched_pair(torch, dev, batched, one,
+                             voxels[2 * i:2 * i + 2])
+            rows = r.pop("batched_rows")
+            r["queued_equal_direct"] = [
+                bool(np.array_equal(bat["voxel"]["flows"][2 * i + k],
+                                    rows[k])) for k in (0, 1)]
+            redo[f"requests {2 * i}, {2 * i + 1}"] = r
+            if r["flipped"]:
+                _, f, n, shape = r["first_flip"]
+                check(f <= MAX_FLIP_SHARE * n,
+                      f"queued pair {i}: the first differing neuron call "
+                      f"{shape} flipped {f} of {n} spikes against batch-1")
+        same = {kind: sum(e == 0.0 for e in v) for kind, v in epe.items()}
+        epe = {kind: float(np.mean(v)) for kind, v in epe.items()}
+        scale = float(np.mean([np.abs(f).mean()
+                               for f in plain["voxel"]["flows"]]))
+        for d in (plain, bat):
+            for v in d.values():
+                v.pop("flows")
+    log(f"[19] FlowServer(devices=[{dev}] * 2), en4 bf16 at {hw[0]}x{hw[1]}: "
+        f"a batched forward's spikes against its rows' batch-1 forwards: "
+        f"{pair0['flipped']} of {pair0['spikes']} flipped (K1 and K2 "
+        f"outputs); K3 a row "
+        f"of an events group against its twin {float(k3_err):.2e}; "
+        f"launches a batched forward of 2 rows: voxel "
+        f"{bat['voxel']['launches']} over {forwards['voxel']}, events "
+        f"{bat['events']['launches']} over {forwards['events']}; the "
+        f"checked pair's flows against batch-1: max |d| "
+        f"{pair0['max_abs_diff']:.3g}; the queued flows against "
+        f"devices=None: mean EPE {epe}, equal bit for bit {same} of {n_vox}"
+        f" / {n_ev} (mean |flow| {scale:.3g}); the pairs of the voxel "
+        f"requests that differ, again spike by spike: {redo} [{card}]")
+    for label, d in out.items():
+        log(f"[19]   {label}: " + "; ".join(
+            f"{k} {v['requests']} queued, {v['windows_per_s']:.2f} "
+            f"windows/s, launches {v['launches']}" for k, v in d.items()))
+    pair0.pop("batched_rows")
+    return dict(servers=out, checked_pair=pair0,
+                k3_max_abs_err=float(k3_err), epe_vs_batch1=epe,
+                bitwise_equal_flows=same, mean_abs_flow=scale,
+                differing_pairs=redo)
+
+
+def batched_pair(torch, dev, batched, one, pair):
+    """Two voxel requests through the batched server's step as one batch
+    and through the one-request server's step one by one, every K1 and K2
+    output recorded: the spikes flipped (in all, and at the first call
+    that differs: [call, flipped, spikes, shape]), the flows' largest
+    |d| and the batched rows' flows."""
+    from sdformerflow_tpu_torch.ops import hopper_attn as A
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    records = {}
+
+    def recorder(key):
+        def psn(x, w, b, *, scale=None, shift=None, **_):
+            y = P.fused_affine_psn(x, w, b, scale=scale, shift=shift)
+            records.setdefault(key, []).append(y)
+            return y
+
+        def attend(x, p, nh):
+            a = A.qk_attn_interior(x, p, nh)
+            records.setdefault(key, []).append(a)
+            return A.qk_attn_tail(a, p, nh, x.shape, x.dtype)
+        return psn, attend
+    pair = np.stack(pair)
+    with torch.inference_mode():
+        with site_functions(*recorder("batched")):
+            fb = batched._step(torch.from_numpy(pair).to(dev))[-1]
+        f1 = []
+        for r in range(2):
+            with site_functions(*recorder(r)):
+                f1.append(one._step(
+                    torch.from_numpy(pair[r:r + 1]).to(dev))[-1])
+    check(len(records["batched"]) == len(records[0]),
+          f"{len(records['batched'])} sites batched, {len(records[0])} at "
+          "batch 1")
+    flipped = total = 0
+    first = None
+    for i, y in enumerate(records["batched"]):
+        for r in range(2):
+            want = records[r][i]
+            if y.shape[1] == 2 * want.shape[1] and y.dim() == 4:
+                m = want.shape[1]   # K1: the rows' windows stacked
+                got = y[:, r * m:(r + 1) * m]
+            else:                   # K2: time-major [T, B, ...]
+                got = y[:, r:r + 1]
+            f = int((got != want).sum())
+            if f and first is None:
+                first = [i, f, want.numel(), list(want.shape)]
+            flipped += f
+            total += want.numel()
+    return dict(flipped=flipped, spikes=total, first_flip=first,
+                max_abs_diff=float((fb - torch.cat(f1)).abs().max()),
+                batched_rows=[f.float().cpu().numpy() for f in fb])
+
+
+def phase_dp(torch, dev, config, state_dict, card):
+    t_phase = time.perf_counter()
+    serving = dp_serving(torch, dev, config, state_dict, card)
+    torch.cuda.empty_cache()
+    step = dp_step(torch, card)
+    trainer = torchrun_ab(torch, card)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[19] phase 19: {phase_s:.1f} s")
+    return dict(step=step, torchrun=trainer, serving=serving,
+                phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -5539,6 +6227,7 @@ def main() -> int:
         slice16 = phase_train_slice(torch, dev, config, state_dict, card)
         zoo = phase_zoo(torch, dev, card)
         tel = phase_telemetry(torch, dev, config, state_dict, card)
+        dp = phase_dp(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5668,6 +6357,11 @@ def main() -> int:
             .get(key, 0)
         entry["launches_zoo"] = zoo["launches"].get(key, 0)
         entry["launches_telemetry"] = tel["collecting_launches"][key]
+        entry["launches_dp_step"] = \
+            dp["step"]["ranks"][0]["launches"].get(key, 0)
+        entry["launches_dp_serving"] = {
+            kind: v["launches"].get(key, 0) for kind, v in
+            dp["serving"]["servers"][f"devices=[{dev}] * 2"].items()}
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -5689,6 +6383,7 @@ def main() -> int:
     log(json.dumps({"train_slice": slice16}))
     log(json.dumps({"zoo": zoo}))
     log(json.dumps({"telemetry": tel}))
+    log(json.dumps({"dp": dp}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.multihost import global_rows
+
 
 def center_crop(events, flow, mask, size: Tuple[int, int]):
     h, w = events.shape[-2], events.shape[-1]
@@ -107,7 +109,8 @@ def _uniform(gen) -> float:
 
 
 def build_train_augmentation(augment_names, augment_prob, crop=None,
-                             max_drop_rate=0.6, rotation_degrees=(0.0, 0.0)):
+                             max_drop_rate=0.6, rotation_degrees=(0.0, 0.0),
+                             group=None):
     """Compose the configured train transforms into
     ``fn(generator, events, flow, mask)``, ``generator`` a CPU
     ``torch.Generator``: "Rotation" first (:func:`rotate_flip`, the angle
@@ -116,7 +119,14 @@ def build_train_augmentation(augment_names, augment_prob, crop=None,
     in config order "Horizontal" / "Vertical" flips (probability p each),
     "Polarity" (negate the signed voxels, p > 0 only) and "Drop" (with
     probability p, drop each entry at a rate uniform in [0,
-    max_drop_rate))."""
+    max_drop_rate)).
+
+    With a data-parallel ``group`` the batch is this rank's rows of the
+    global batch: the decisions, drawn per batch from a generator seeded
+    alike on every rank, are the same everywhere, and the "Drop" keep mask
+    is drawn at the global batch shape, of which this rank keeps its rows
+    (``parallel/multihost.py:global_rows``), so R ranks augment as one
+    process would."""
     names = [n.lower() for n in (augment_names or [])]
     probs = list(augment_prob or [])
 
@@ -152,8 +162,10 @@ def build_train_augmentation(augment_names, augment_prob, crop=None,
                     q = (0.0 - max_drop_rate) * u + max_drop_rate
                     seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
                     dgen = torch.Generator(events.device).manual_seed(seed)
-                    keep = torch.rand(events.shape, generator=dgen,
-                                      device=events.device) > q
+                    keep = global_rows(
+                        lambda shape: torch.rand(shape, generator=dgen,
+                                                 device=events.device),
+                        events.shape, 0, group) > q
                     events = event_drop(events, keep)
         return events, flow, mask
 

@@ -3,6 +3,13 @@
 ``sequence_loss``, ``flow_loss_supervised``, ``aee_metrics``,
 ``aae_metric``). Flow tensors are ``[B, 2, H, W]``, masks ``[B, 1, H, W]``
 (or ``[B, H, W]``).
+
+Under data parallelism (a ``group`` of ranks, ``parallel/multihost.py``)
+each rank holds some rows of the global batch. The training losses then
+return this rank's share of the global batch's loss: the valid-pixel
+count and the batch size in their normalisers are the global ones, so the
+shares sum over the ranks to the loss one process computes on the whole
+batch, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -12,13 +19,16 @@ from typing import Sequence
 
 import torch
 
+from .parallel.multihost import active, all_reduce_sum
+
 MAX_FLOW = 400.0
 
 
 def masked_epe(flow, gt_flow, mask, num_valid_px):
     """Per-sample masked average endpoint error; ``num_valid_px`` is the
     TOTAL valid count over the whole batch (reference quirk: the per-sample
-    sum is divided by the global count, then averaged over batch)."""
+    sum is divided by the global count, then averaged over batch), over
+    every rank's rows under data parallelism."""
     b = flow.shape[0]
     error = torch.sqrt(((flow - gt_flow) ** 2).sum(dim=1) + 1e-8)
     error = error.reshape(b, -1) * mask.reshape(b, -1)
@@ -62,33 +72,51 @@ def cosine_loss(flow, gt_flow, mask, num_valid_px, epsilon=1e-7):
     return ((1.0 - cos) * _pixel_mask(mask)).sum() / (num_valid_px + 1e-9)
 
 
-def sequence_loss(pred_list, gt_flow, valid, gamma=0.8, max_flow=MAX_FLOW):
+def sequence_loss(pred_list, gt_flow, valid, gamma=0.8, max_flow=MAX_FLOW,
+                  group=None):
     """RAFT-style gamma-weighted L1 sequence loss with magnitude validity,
     the mask kept per sample (the JAX package's deliberate deviation from
-    the reference at batch > 1)."""
+    the reference at batch > 1). With a data-parallel ``group``, this
+    rank's share: its sums over the global element count."""
     n = len(pred_list)
     mag = torch.sqrt((gt_flow ** 2).sum(dim=1))
     valid = (valid.squeeze(1) >= 0.5) & (mag < max_flow)
+    count = None
+    if active(group):
+        count = all_reduce_sum(gt_flow.new_full((1,), float(
+            gt_flow.numel())), group)[0]
     loss = 0.0
     for i, pred in enumerate(pred_list):
         w = gamma ** (n - i - 1)
-        loss = loss + w * (valid[:, None] * (pred - gt_flow).abs()).mean()
+        err = valid[:, None] * (pred - gt_flow).abs()
+        loss = loss + w * (err.mean() if count is None
+                           else err.sum() / count)
     return loss
 
 
 def flow_loss_supervised(pred_list: Sequence, gt_flow, mask, *,
-                         flow_scaling=1.0, lambda_mod=1.0, gamma=None):
+                         flow_scaling=1.0, lambda_mod=1.0, gamma=None,
+                         group=None):
     """Multi-res supervised flow loss (the training objective): the mean
     over the predictions of the masked EPE, meaned over the batch; the
-    sequence loss when ``gamma`` is set."""
+    sequence loss when ``gamma`` is set. With a data-parallel ``group``,
+    this rank's share: the valid count and the batch size of every rank's
+    rows (one all-reduce)."""
     if gamma is not None:
-        return sequence_loss(pred_list, gt_flow, mask, gamma)
+        return sequence_loss(pred_list, gt_flow, mask, gamma, group=group)
     num_valid_px = mask.sum()
+    batch = None
+    if active(group):
+        counts = all_reduce_sum(torch.stack([
+            num_valid_px, num_valid_px.new_full((), float(mask.shape[0]))]),
+            group)
+        num_valid_px, batch = counts[0], counts[1]
     loss = 0.0
     for pred in pred_list:
         loss = loss + lambda_mod * masked_epe(pred * flow_scaling, gt_flow,
                                               mask, num_valid_px)
-    return (loss / len(pred_list)).mean()
+    loss = loss / len(pred_list)
+    return loss.mean() if batch is None else loss.sum() / batch
 
 
 def aee_metrics(pred, gt_flow, mask, flow_scaling=1.0):

@@ -186,7 +186,12 @@ class STTFlowNet(nn.Module):
     (the chunk is split into ``num_bins / patch_t`` time groups) or
     ``2 * num_bins``, the two-window path (the last group of the first
     chunk as a reference frame, then the groups of the second chunk; each
-    chunk standardized over its nonzero entries when ``norm_input``)."""
+    chunk standardized over its nonzero entries when ``norm_input``, over
+    the whole batch: every rank's rows with a data-parallel ``group``, set
+    by the steps). The standardization mixes the batch's rows in eval too:
+    ``couples_rows``."""
+
+    group = None
 
     def __init__(self, swin: SwinConfig, num_bins=20, base_num_channels=96,
                  kernel_size=3, num_encoders=3, use_upsample_conv=True,
@@ -206,6 +211,7 @@ class STTFlowNet(nn.Module):
             raise ValueError(f"input_bins {self.input_bins}: STTFlowNet "
                              f"takes {num_bins} or {2 * num_bins} bins")
         self.num_split = num_bins // patch_t
+        self.couples_rows = bool(norm_input) and self.input_bins != num_bins
         num_blocks = self.num_split + (self.input_bins != num_bins)
         h, w = swin.input_size
         crop = CropSize(w, h, {"h": 2, "w": 2})
@@ -224,8 +230,8 @@ class STTFlowNet(nn.Module):
         if bins != self.num_bins:
             chunk1, chunk2 = x[:, :self.num_bins], x[:, self.num_bins:]
             if self.norm_input:
-                chunk1 = normalize_nonzero_std(chunk1)
-                chunk2 = normalize_nonzero_std(chunk2)
+                chunk1 = normalize_nonzero_std(chunk1, group=self.group)
+                chunk2 = normalize_nonzero_std(chunk2, group=self.group)
             size = self.num_bins // self.num_split
             groups = [chunk1.split(size, dim=1)[-1]] \
                 + list(chunk2.split(size, dim=1))

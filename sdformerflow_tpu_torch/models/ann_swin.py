@@ -143,7 +143,10 @@ class SwinBlock3D(nn.Module):
 
     In train mode both branches take drop-path at ``drop_path_rate``, one
     mask per sample each, drawn from ``drop_path_generator`` (None: torch's
-    default generator)."""
+    default generator), at the global batch with a data-parallel
+    ``group`` (set by the steps)."""
+
+    group = None
 
     def __init__(self, dim, num_heads, input_dhw, window_size=(2, 7, 7),
                  shift_size=(0, 0, 0), mlp_ratio=4.0, version="swinv1",
@@ -166,7 +169,8 @@ class SwinBlock3D(nn.Module):
     def _drop_path(self, y):
         if self.training and self.drop_path_rate > 0.0:
             return drop_path(y, self.drop_path_rate,
-                             generator=self.drop_path_generator, batch_axis=0)
+                             generator=self.drop_path_generator, batch_axis=0,
+                             group=self.group)
         return y
 
     def _attend(self, x, mask):

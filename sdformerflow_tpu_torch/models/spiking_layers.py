@@ -51,6 +51,7 @@ from ..ops.hopper_attn import bn_eval_affine
 from ..ops.hopper_psn import affine_psn
 from ..ops.interpolate import resize_bilinear
 from ..ops.surrogate import get_surrogate
+from ..parallel import multihost
 from .common import SpikingConfig
 
 NEURON_TYPES = ("if", "lif", "slttlif", "plif", "psn", "glif")
@@ -217,10 +218,13 @@ class TorchBatchNorm(nn.Module):
     running statistics as ``r <- (1 - momentum) r + momentum stat`` with the
     unbiased variance (n = numel / C), unless ``update_running_stats`` is
     False (validation on batch statistics). Eval mode uses the running
-    statistics.
+    statistics. With a data-parallel ``group`` (set by the steps,
+    ``training/train_step.py``) the batch statistics and n are those of
+    every rank's rows (``parallel/multihost.py:batch_moments``).
     """
 
     fusable = True
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1, scale_init: float = 1.0):
@@ -235,15 +239,15 @@ class TorchBatchNorm(nn.Module):
     def _batch_stats(self, xf):
         """(mean, biased var) over every axis but the last, updating the
         running statistics."""
-        var, mean = torch.var_mean(xf, dim=tuple(range(xf.dim() - 1)),
-                                   correction=0)
+        mean, var, n = multihost.batch_moments(
+            xf, range(xf.dim() - 1), self.group)
         if self.update_running_stats:
             with torch.no_grad():
-                n = xf.numel() / xf.shape[-1]
+                unbiased = n / (max(n - 1.0, 1.0) if isinstance(n, float)
+                                else (n - 1.0).clamp(min=1.0))
                 m = self.momentum
                 for buf, stat in ((self.running_mean, mean),
-                                  (self.running_var,
-                                   var * (n / max(n - 1.0, 1.0)))):
+                                  (self.running_var, var * unbiased)):
                     buf.copy_((1 - m) * buf.to(xf.dtype) + m * stat)
         return mean, var
 
@@ -375,10 +379,13 @@ class SpikingNorm(nn.Module):
       batch; TDBN: the same with its scale initialised to ``alpha * v_th``;
     - BNTT: a TorchBatchNorm ``bn_t{i}`` (eps 1e-4) per time step;
     - BN_notrack: batch statistics in both modes, parameters ``scale`` and
-      ``bias`` (computed in >= float32; JAX computes in the input's dtype);
+      ``bias`` (computed in >= float32; JAX computes in the input's dtype),
+      over every rank's rows with a data-parallel ``group``;
     - GN / IN / LN: :class:`GroupNorm` ``GroupNorm_0`` with C // 16, C and 1
       groups (eps 1e-5).
     """
+
+    group = None
 
     def __init__(self, channels: int, norm: str = "BN", num_steps: int = 10,
                  v_th: float = 1.0, alpha: float = 1.0):
@@ -386,6 +393,8 @@ class SpikingNorm(nn.Module):
         if norm not in NORM_TYPES:
             raise ValueError(f"unknown norm {norm!r}")
         self.norm, self.num_steps = norm, num_steps
+        # batch statistics in eval too: a batch's rows mix
+        self.couples_rows = norm == "BN_notrack"
         if norm in ("BN", "TDBN"):
             self.BatchNorm_0 = TorchBatchNorm(
                 channels, scale_init=alpha * v_th if norm == "TDBN" else 1.0)
@@ -414,8 +423,8 @@ class SpikingNorm(nn.Module):
         if self.norm == "BN_notrack":
             cdt = torch.promote_types(x.dtype, torch.float32)
             xf = x.to(cdt)
-            var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
-                                       correction=0)
+            mean, var, _ = multihost.batch_moments(xf, range(x.dim() - 1),
+                                                   self.group)
             y = (xf - mean) / torch.sqrt(var + 1e-5) * self.scale.to(cdt) \
                 + self.bias.to(cdt)
             return y.to(x.dtype)
@@ -728,16 +737,21 @@ def conv_output_size(n: int, kernel_size: int, stride: int,
     return (n + 2 * padding - kernel_size) // stride + 1
 
 
-def drop_path(x, rate: float, *, generator=None, batch_axis: int = 1):
+def drop_path(x, rate: float, *, generator=None, batch_axis: int = 1,
+              group=None):
     """Stochastic depth: keep each sample's whole branch with probability
     ``1 - rate`` (scaled by 1 / keep) or zero it. The mask is drawn per
     sample on ``batch_axis``, shared over time and space, from
-    ``generator`` (uniform < keep, the JAX ``bernoulli``)."""
+    ``generator`` (uniform < keep, the JAX ``bernoulli``); with a
+    data-parallel ``group`` at the global batch, of which this rank keeps
+    its rows (``parallel/multihost.py:global_rows``)."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
     shape = [1] * x.dim()
     shape[batch_axis] = x.shape[batch_axis]
-    u = torch.rand(shape, generator=generator, device=x.device)
+    u = multihost.global_rows(
+        lambda s: torch.rand(s, generator=generator, device=x.device),
+        shape, batch_axis, group)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))

@@ -58,6 +58,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import windows as W
+from ..parallel import multihost
 from ..ops.hopper_attn import QKAttnParams, fused_qk_attention
 from .common import SpikingConfig
 from .spiking_layers import (NoNorm, SpikingNeuron, SpikingNorm, drop_path,
@@ -356,7 +357,33 @@ class SpikingSwinBlock3D(nn.Module):
     window attention with the shift mask) and the MLP, each joined by
     ``cnf``. In train mode the attention branch takes drop-path at
     ``drop_path_rate``, drawn from ``drop_path_generator`` (None: torch's
-    default generator of the input's device)."""
+    default generator of the input's device), at the global batch with a
+    data-parallel ``group``.
+
+    The window partition refolds the whole batch (the reference's raw
+    refold, ``ops/windows.py:window_partition_v2_tm``), so at batch > 1 the
+    attention mixes rows: at a temporal window of 2 its PSN pairs row b
+    with row b + B/2, and the pair-local form's output regroup then feeds
+    each output row from two neighbouring input rows and their partners, a
+    pattern that reaches every row of a batch of 4. Two switches keep that
+    right:
+
+    - ``group`` (a data-parallel group, set by the steps): the attention
+      part (norm1 and the attention) runs on the global batch, gathered
+      from every rank (``parallel/multihost.py:gather_rows``), and each
+      rank keeps its rows, so R ranks compute what one process does on the
+      whole batch; the norms of that part take the gathered batch's
+      statistics locally (the block clears their group). Its compute and
+      activations a rank grow with R;
+    - ``rows_apart`` (set by ``make_eval_step(per_row=True)``, the batched
+      server): each row is refolded on its own, so each row's output is its
+      batch-1 output: one attention call over the rows' stacked windows in
+      the MS pair-local form (K1 in eval; a temporal window of 2, an even
+      window count), else one call a row.
+    """
+
+    group = None
+    rows_apart = False
 
     def __init__(self, dim, num_heads, cfg: SpikingConfig, input_resolution,
                  window_size=(2, 7, 7), shift_size=(0, 0, 0), mlp_ratio=4.0,
@@ -394,6 +421,19 @@ class SpikingSwinBlock3D(nn.Module):
         if (D, H, Wd) != self.input_resolution:
             raise ValueError(f"block built for {self.input_resolution}, got "
                              f"{(D, H, Wd)}")
+        # norm1 and the attention run on the whole batch, gathered under a
+        # group: their statistics are local
+        for part in (self.norm1, self.attn):
+            for m in part.modules() if part is not None else ():
+                if hasattr(m, "group"):
+                    m.group = None
+        if multihost.active(self.group) and not return_attention:
+            full = multihost.gather_rows(x, 1, self.group)
+            return multihost.own_rows(self._ssa_batch(full), 1, self.group)
+        return self._ssa_batch(x, return_attention)
+
+    def _ssa_batch(self, x, return_attention=False):
+        D, B, H, Wd, C = x.shape
         if self.norm1 is not None:
             x = self.norm1(x)
         ws, ss = self.window_size, self.shift_size
@@ -401,12 +441,30 @@ class SpikingSwinBlock3D(nn.Module):
         Dp, _, Hp, Wp, _ = x.shape
         if self.shifted:
             x = torch.roll(x, (-ss[0], -ss[1], -ss[2]), dims=(0, 2, 3))
-        y = self.attn(W.window_partition_v2_tm(x, ws),
-                      getattr(self, "attn_mask", None),
-                      return_attention=return_attention)
+        apart = self.rows_apart and B > 1
+        windows = W.window_partition_v2_tm(x, ws, per_row=apart)
+        mask = getattr(self, "attn_mask", None)
+        if not apart:
+            y = self.attn(windows, mask, return_attention=return_attention)
+        elif (isinstance(self.attn, SpikingQKWindowAttention3D)
+              and ws[0] == 2 and (windows.shape[1] // B) % 2 == 0
+              and not return_attention):
+            # the pair-local form (K1 in eval) keeps each pair of windows
+            # apart: one call over every row's windows, whose output holds
+            # each time half of every row in turn
+            y = self.attn(windows, mask)
+            y = y.reshape(2, 2, B, -1, *y.shape[2:]).transpose(1, 2) \
+                .reshape(y.shape)
+        else:
+            # the other forms refold windows of neighbouring rows
+            # together: one call a row
+            y = [self.attn(w, mask, return_attention=return_attention)
+                 for w in windows.chunk(B, dim=1)]
+            y = tuple(torch.cat(p, dim=1) for p in zip(*y)) \
+                if return_attention else torch.cat(y, dim=1)
         if return_attention:
             return y[1]
-        y = W.window_reverse_tm(y, ws, B, Dp, Hp, Wp)
+        y = W.window_reverse_tm(y, ws, B, Dp, Hp, Wp, per_row=apart)
         if self.shifted:
             y = torch.roll(y, ss, dims=(0, 2, 3))
         return y[:D, :, :H, :Wd, :]
@@ -419,7 +477,8 @@ class SpikingSwinBlock3D(nn.Module):
         y = self._ssa(x)
         if self.training and self.drop_path_rate > 0.0:
             y = drop_path(y, self.drop_path_rate,
-                          generator=self.drop_path_generator)
+                          generator=self.drop_path_generator,
+                          group=self.group)
         x = _sew(y, x, self.cnf)
         # no drop-path on the MLP branch (reference parity)
         return _sew(self.mlp(x), x, self.cnf)

@@ -2,11 +2,20 @@
 
 Mirror of ``sdformerflow_tpu/ops/normalization.py``. Masked reductions keep
 the encode on the device with no host synchronisation.
+
+The normalizations take their statistics over the whole batch, as the
+reference and JAX do. Under data parallelism (a ``group`` of ranks, each
+holding some rows of the global batch) they are those of every rank's rows,
+as JAX's over its sharded batch; ``per_row=True`` takes each row's own
+(a served request is normalized on its own, whatever it was batched with).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.multihost import active, all_reduce_sum
 
 
 def polarity_split(chunk: torch.Tensor) -> torch.Tensor:
@@ -15,26 +24,55 @@ def polarity_split(chunk: torch.Tensor) -> torch.Tensor:
     return torch.stack((chunk.clamp(min=0), (-chunk).clamp(min=0)), dim=2)
 
 
-def normalize_nonzero_minmax(x: torch.Tensor) -> torch.Tensor:
-    """Min-max normalize over the nonzero entries only (zeros stay zero)."""
+def _sum(t: torch.Tensor, per_row: bool) -> torch.Tensor:
+    """The sum over the whole tensor, or over each row (keeping its axes)."""
+    if not per_row:
+        return t.sum()
+    return t.sum(dim=tuple(range(1, t.dim())), keepdim=True)
+
+
+def normalize_nonzero_minmax(x: torch.Tensor, *, group=None,
+                             per_row: bool = False) -> torch.Tensor:
+    """Min-max normalize over the nonzero entries only (zeros stay zero);
+    with a data-parallel ``group`` over every rank's entries (one
+    all-reduce), with ``per_row`` over each row's."""
     mask = x != 0
     big = torch.finfo(x.dtype).max
-    mn = torch.where(mask, x, big).amin()
-    mx = torch.where(mask, x, -big).amax()
+    if per_row:
+        dims = tuple(range(1, x.dim()))
+        mn = torch.where(mask, x, big).amin(dim=dims, keepdim=True)
+        mx = torch.where(mask, x, -big).amax(dim=dims, keepdim=True)
+        any_nonzero = mask.flatten(1).any(dim=1).view(mn.shape)
+    else:
+        mn = torch.where(mask, x, big).amin()
+        mx = torch.where(mask, x, -big).amax()
+        any_nonzero = mask.any()
+    if active(group):
+        ext = torch.stack([-mn, mx, any_nonzero.to(x.dtype)])
+        dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=group)
+        mn, mx, any_nonzero = -ext[0], ext[1], ext[2] > 0
     scale = mx - mn
-    ok = mask.any() & (scale != 0)
+    ok = any_nonzero & (scale != 0)
     normed = torch.where(mask, (x - mn) / torch.where(ok, scale, 1.0), x)
     return torch.where(ok, normed, x)
 
 
-def normalize_nonzero_std(x: torch.Tensor) -> torch.Tensor:
+def normalize_nonzero_std(x: torch.Tensor, *, group=None,
+                          per_row: bool = False) -> torch.Tensor:
     """Standardize over the nonzero entries only (zeros stay zero), with
     torch's unbiased ``.std()``; a count of 0 or 1 leaves ``x`` as it is
-    (its std is not > 0)."""
+    (its std is not > 0). With a data-parallel ``group`` the count, mean
+    and variance are every rank's (two all-reduces), with ``per_row``
+    each row's."""
     mask = x != 0
-    count = mask.sum()
-    mean = torch.where(mask, x, 0.0).sum() / count.clamp(min=1)
-    var = torch.where(mask, (x - mean) ** 2, 0.0).sum() / (count - 1)
+    count = _sum(mask, per_row)
+    total = _sum(torch.where(mask, x, 0.0), per_row)
+    if active(group):
+        both = all_reduce_sum(torch.stack([count.to(x.dtype), total]), group)
+        count, total = both[0], both[1]
+    mean = total / count.clamp(min=1)
+    dev2 = _sum(torch.where(mask, (x - mean) ** 2, 0.0), per_row)
+    var = all_reduce_sum(dev2, group) / (count - 1)
     std = torch.sqrt(var)
     ok = std > 0
     normed = torch.where(mask, (x - mean) / torch.where(ok, std, 1.0), x)
@@ -50,12 +88,14 @@ def spike_binarize(x: torch.Tensor, threshold: float) -> torch.Tensor:
 
 def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
                  polarity: bool = True, norm_input="minmax",
-                 spike_th: float | None = None) -> torch.Tensor:
+                 spike_th: float | None = None, group=None,
+                 per_row: bool = False) -> torch.Tensor:
     """polarity split -> nonzero normalize -> optional binarize.
 
-    ``norm_input`` ``"minmax"`` or ``"std"`` normalizes; any other value
-    (``None``, ``True`` as the STT configs set it, ...) leaves the chunk as
-    it is, as JAX's ``encode_input`` does.
+    ``norm_input`` ``"minmax"`` or ``"std"`` normalizes, over the whole
+    batch (every rank's rows with a data-parallel ``group``; each row's with
+    ``per_row``); any other value (``None``, ``True`` as the STT configs
+    set it, ...) leaves the chunk as it is, as JAX's ``encode_input`` does.
 
     ``chunk``: [B, bins, H, W] signed voxels (``polarity=True``) or
     [B, bins, 2, H, W]. Returns [B, bins, 2, H, W] (with ``polarity``
@@ -66,9 +106,9 @@ def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
     if encoding == "voxel" and polarity:
         chunk = polarity_split(chunk)
     if norm_input == "minmax":
-        chunk = normalize_nonzero_minmax(chunk)
+        chunk = normalize_nonzero_minmax(chunk, group=group, per_row=per_row)
     elif norm_input == "std":
-        chunk = normalize_nonzero_std(chunk)
+        chunk = normalize_nonzero_std(chunk, group=group, per_row=per_row)
     if spike_th is not None:
         chunk = spike_binarize(chunk, spike_th)
     return chunk

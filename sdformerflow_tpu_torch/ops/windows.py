@@ -33,20 +33,30 @@ def get_window_size(x_size, window_size, shift_size=None):
     return tuple(use_window), tuple(use_shift)
 
 
-def window_partition_v2_tm(x: torch.Tensor, window_size) -> torch.Tensor:
-    """[D, B, H, W, C] -> [wd, B*nW, wh, ww, C] (raw refold)."""
+def window_partition_v2_tm(x: torch.Tensor, window_size,
+                           per_row: bool = False) -> torch.Tensor:
+    """[D, B, H, W, C] -> [wd, B*nW, wh, ww, C] (raw refold). The refold
+    runs over the whole batch, so at B > 1 the leading ``wd`` axis holds
+    different rows (at wd = 2 the first half of the batch, then the second
+    half), as the reference's; ``per_row`` refolds each row on its own
+    (its batch-1 layout) and stacks the rows' windows row by row."""
     D, B, H, W, C = x.shape
     wd, wh, ww = window_size
     x = x.reshape(D // wd, wd, B, H // wh, wh, W // ww, ww, C)
     x = x.permute(2, 0, 3, 5, 1, 4, 6, 7)  # B, nD, nH, nW, wd, wh, ww, C
+    if per_row:
+        x = x.reshape(B, wd, -1, wh, ww, C).transpose(0, 1)
     return x.reshape(wd, -1, wh, ww, C)
 
 
-def window_reverse_tm(windows: torch.Tensor, window_size, B, D, H, W
-                      ) -> torch.Tensor:
+def window_reverse_tm(windows: torch.Tensor, window_size, B, D, H, W,
+                      per_row: bool = False) -> torch.Tensor:
     """Inverse of :func:`window_partition_v2_tm`:
     [wd, B*nW, wh, ww, C] -> [D, B, H, W, C]."""
     wd, wh, ww = window_size
+    if per_row:
+        windows = windows.reshape(wd, B, -1, wh, ww,
+                                  windows.shape[-1]).transpose(0, 1)
     x = windows.reshape(B, D // wd, H // wh, W // ww, wd, wh, ww, -1)
     x = x.permute(1, 4, 0, 2, 5, 3, 6, 7)  # nD, wd, B, nH, wh, nW, ww, C
     return x.reshape(D, B, H, W, -1)

@@ -1,1 +1,2 @@
-"""Batch prefetch to the card (``mesh.py``)."""
+"""Data parallelism: the devices of a data axis and batch prefetch
+(``mesh.py``), multi-process training (``multihost.py``)."""

@@ -1,19 +1,85 @@
-"""Background batch production and host-to-device prefetch, a mirror of
-``host_prefetch`` and ``prefetch_to_device`` in
-``sdformerflow_tpu/parallel/mesh.py`` on one card.
+"""Devices of a data axis and background batch production, a mirror of
+``sdformerflow_tpu/parallel/mesh.py``.
 
-The mesh, sharding and replication helpers of that module are not ported:
-the port trains on one card (ROADMAP section 1 item 9).
+JAX's mesh is a grid of devices with a ``data`` axis; a batch is sharded
+along it and the parameters are replicated, and one SPMD program runs over
+all of them. In the port a data axis is a list of devices
+(:func:`make_mesh`): :func:`shard_batch` splits a batch's rows over it in
+order and :func:`replicate` gives one copy of a module per distinct device.
+A list may name one device more than once (the test rig, as JAX's tests
+run on ``--xla_force_host_platform_device_count`` virtual CPU devices):
+such entries share one replica, and their rows run as one batch there.
+Training over several cards runs one process per card instead
+(``parallel/multihost.py``); ``serving.FlowServer(devices=...)`` takes a
+list. JAX's ``model`` axis (tensor parallelism, ``sharding_rules.py``) is
+not ported.
+
+``host_prefetch`` and ``prefetch_to_device`` feed the trainer's batches to
+its card.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import queue as queue_mod
 import threading
 
 import numpy as np
 import torch
+
+
+def make_mesh(n_data=None, devices=None) -> list:
+    """The devices of a data axis: the first ``n_data`` of ``devices``
+    (default: every visible card, else the CPU), as ``torch.device``s."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())] or ["cpu"]
+    devices = [_indexed(torch.device(d)) for d in devices]
+    n_data = len(devices) if n_data is None else int(n_data)
+    if not 1 <= n_data <= len(devices):
+        raise ValueError(f"n_data={n_data} of {len(devices)} device(s)")
+    return devices[:n_data]
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """A bare ``cuda`` as the current card's index, so that one card has
+    one name."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def distinct(devices) -> list:
+    """The devices of a data axis once each, in order of first mention."""
+    return list(dict.fromkeys(torch.device(d) for d in devices))
+
+
+def shard_batch(batch, devices) -> list:
+    """A batch (a tensor or nested dicts of ``[B, ...]`` tensors) -> one
+    batch per entry of ``devices``, the rows split in order (entry i takes
+    rows ``i*B/n`` to ``(i+1)*B/n``) and moved to that device; ``B`` must
+    be divisible by ``len(devices)``, as JAX's sharding requires."""
+    devices = [torch.device(d) for d in devices]
+    first = batch
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    b, n = first.shape[0], len(devices)
+    if b % n:
+        raise ValueError(f"batch {b} is not divisible by the {n} devices "
+                         "of the data axis")
+    per = b // n
+    return [_map(lambda t, i=i, d=d: t[i * per:(i + 1) * per].to(d), batch)
+            for i, d in enumerate(devices)]
+
+
+def replicate(module: torch.nn.Module, devices) -> dict:
+    """One copy of ``module`` per distinct device of ``devices``:
+    ``{device: module}``. The module itself serves the device it is on; the
+    other devices get deep copies."""
+    home = next(module.parameters()).device
+    return {d: module if d == home else copy.deepcopy(module).to(d)
+            for d in distinct(devices)}
 
 
 def host_prefetch(iterator, size: int = 2):

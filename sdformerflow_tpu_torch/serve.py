@@ -10,6 +10,10 @@ events voxelized by K3).
 
 ``--port 0`` binds a free port; the line ``serving on http://HOST:PORT``
 names it. SIGTERM finishes the requests in flight, then closes the server.
+``--dp N`` batches up to N queued compatible requests over the cards
+``cuda:0 .. cuda:N-1`` (``FlowServer(devices=...)``), and refuses when
+fewer cards are visible; with ``--device cpu`` over N CPU replicas of one
+model (one batch of N rows on the CPU).
 
 Protocol (numpy .npz bodies):
   POST /flow   body npz with either ``chunk`` ([bins, H, W] voxels at crop
@@ -99,8 +103,9 @@ def parse_args(argv=None):
     ap.add_argument("--warmup_all_buckets", action="store_true",
                     help="also warm every smaller event bucket")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel serving over this many devices "
-                         "(not ported: only 1)")
+                    help="batch queued requests over this many devices: "
+                         "cuda:0..N-1, or N rows on the CPU with --device "
+                         "cpu")
     ap.add_argument("--s2d", action="store_true",
                     help="exact space-to-depth embed re-expression "
                          "(MS_PED models with running-stats BN only)")
@@ -109,14 +114,17 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError(
-            "--dp > 1: mesh batching over several cards is not ported "
-            "(ROADMAP section 1 item 9)")
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device; pass --device cpu to serve "
                          "on the CPU")
+    devices = None
+    if args.dp > 1:
+        if cuda and torch.cuda.device_count() < args.dp:
+            raise SystemExit(f"serve: --dp {args.dp} needs {args.dp} CUDA "
+                             f"devices, {torch.cuda.device_count()} visible")
+        devices = [f"cuda:{i}" for i in range(args.dp)] if cuda \
+            else [args.device] * args.dp
     from .serving import FlowServer
     from .training.config import load_config, merge_eval_config
 
@@ -124,7 +132,8 @@ def main(argv=None):
     if args.eval_config:
         config = merge_eval_config(config, load_config(args.eval_config))
     server = FlowServer(config, ckpt=args.ckpt, device=args.device,
-                        bf16=not args.no_bf16, s2d=args.s2d)
+                        bf16=not args.no_bf16, s2d=args.s2d,
+                        devices=devices)
     try:
         print("warming up...", flush=True)
         server.warmup(args.warmup_events,

@@ -28,9 +28,28 @@ STT config). Events are voxelized into ``data.num_frames`` bins, as in
 JAX, so where the model takes another count (the STT configs' two chunks)
 an events request fails with a ``ValueError`` that says so.
 
-Not ported: mesh batching (one request is one batch-1 forward) and the
-fused-attention option (the port's eval attention always runs K1). The
-HTTP front is ``serve.py`` (``python -m sdformerflow_tpu_torch.serve``).
+Batching over devices (JAX ``mesh=``, ``serving.py:243-352``): with
+``devices=[d0, d1, ...]`` (``parallel/mesh.py:make_mesh``; a device may
+appear more than once) the dispatch thread coalesces up to ``len(devices)``
+queued compatible requests (the same kind and event bucket, waiting
+``batch_window_s`` for more; an incompatible request is parked as the next
+group's leader) into one batch padded to ``len(devices)`` rows; row i runs
+on ``devices[i]``, and each distinct device runs its rows as one batched
+forward on its own replica of the model (an events group is packed into
+one pinned ``[pad, 5, bucket]`` buffer, one K3 launch a row). The fetch
+thread resolves each request's future from its row. A batched row's flow
+is its batch-1 flow (``make_eval_step(per_row=True)``: each request's
+input is normalized on its own and the spiking swin blocks refold each row
+on its own; the reference's raw refold mixes a batch's rows, and so does
+JAX's mesh server). A model whose eval forward
+itself mixes a batch's rows (BN_notrack's batch statistics, the STT's
+two-window standardization: ``couples_rows``) runs a group as one batch
+on one device as JAX does, and refuses a list of several distinct devices,
+where each would take its own rows' statistics.
+
+Not ported: the fused-attention option (the port's eval attention always
+runs K1). The HTTP front is ``serve.py`` (``python -m
+sdformerflow_tpu_torch.serve``).
 """
 
 from __future__ import annotations
@@ -45,6 +64,7 @@ import numpy as np
 import torch
 
 from . import native
+from .parallel.mesh import distinct, make_mesh, replicate
 from .training.config import chunk_bins
 from .training.export import build_inference_state, step_kwargs
 from .training.train_step import make_eval_step
@@ -70,6 +90,11 @@ class FlowServer:
         cast; not together with ``state_dict``. The model is built by
         ``training.export.build_inference_state``, as the exporter's.
     device: where the model runs (``"cuda"`` launches the Hopper kernels).
+    devices: a list of devices to batch queued requests over (see the
+        module's docstring), ``devices[0]`` in place of ``device``; None
+        serves one request a forward.
+    batch_window_s: how long the dispatcher waits for more requests to
+        fill a batch once one is in hand (only with ``devices``).
     bf16: run the bf16 inference path (params and activations bf16, BN
         statistics float32) - the deployment path.
     max_pending: bound on queued and in-flight requests before ``submit``
@@ -85,8 +110,12 @@ class FlowServer:
     def __init__(self, config: dict, state_dict: Optional[dict] = None, *,
                  ckpt: Optional[str] = None, device="cuda", bf16: bool = True,
                  max_pending: int = 8, s2d: bool = False,
-                 model: Optional[torch.nn.Module] = None):
-        self.device = torch.device(device)
+                 model: Optional[torch.nn.Module] = None, devices=None,
+                 batch_window_s: float = 0.002):
+        self._devices = None if devices is None else make_mesh(
+            devices=devices)
+        self.device = torch.device(device) if devices is None \
+            else self._devices[0]
         if model is None:
             model = build_inference_state(config, ckpt, s2d,
                                           device=self.device,
@@ -102,13 +131,22 @@ class FlowServer:
                                                       (480, 640)))
         crop = config["loader"].get("crop")
         self._crop = tuple(crop) if crop else None
+        batched = devices is not None
+        self._batch = len(self._devices) if batched else 1
+        self._batch_window = float(batch_window_s)
         self._step = make_eval_step(
-            model, **step_kwargs(config, bf16=bf16, events=False))
+            model, **step_kwargs(config, bf16=bf16, events=False),
+            per_row=batched)
         self.model = self._step.model
         # the events step runs the same cast model: voxelize at sensor
         # resolution, center crop, forward
         self._events_step = make_eval_step(
-            self.model, **step_kwargs(config, bf16=bf16, events=True))
+            self.model, **step_kwargs(config, bf16=bf16, events=True),
+            per_row=batched)
+        # (voxel step, events step) of each distinct device's replica
+        self._steps = {self.device: (self._step, self._events_step)}
+        if batched:
+            self._replicate(config, bf16)
 
         self._requests: "queue_mod.Queue" = queue_mod.Queue(
             maxsize=max_pending)
@@ -124,6 +162,26 @@ class FlowServer:
             target=self._fetch_loop, daemon=True, name="flow-fetch")
         self._dispatcher.start()
         self._fetcher.start()
+
+    def _replicate(self, config, bf16):
+        """The batched server's replicas: one copy of the cast model (its
+        rows refolded apart) per distinct device, each with its two
+        steps."""
+        homes = distinct(self._devices)
+        mixers = sorted({type(m).__name__ for m in self.model.modules()
+                         if getattr(m, "couples_rows", False)})
+        if mixers and len(homes) > 1:
+            raise ValueError(
+                f"this model's eval forward mixes the rows of a batch "
+                f"({', '.join(mixers)}: batch statistics); over "
+                f"{len(homes)} devices each would take its own rows' "
+                "statistics, unlike one batch: serve it on one device "
+                "(devices=[d] * n) or with devices=None")
+        for dev, model in replicate(self.model, homes).items():
+            if dev != self.device:
+                self._steps[dev] = tuple(make_eval_step(
+                    model, **step_kwargs(config, bf16=bf16, events=events),
+                    per_row=True) for events in (False, True))
 
     # ---------------------------------------------------------------- API
 
@@ -175,12 +233,22 @@ class FlowServer:
         (rows x, y, t, p, valid), pinned when the server runs on the card.
         ``t`` is taken as it comes (no rebase), as the JAX server packs
         it."""
-        n = len(request["x"])
-        bucket = next_bucket(n)
-        buf = torch.empty((1, 5, bucket), dtype=torch.float32,
-                          pin_memory=self.device.type == "cuda")
-        native.pack_window(request["x"], request["y"], request["t"],
-                           request["p"], bucket, t0=0.0, out=buf[0].numpy())
+        return self._pack_group([request], 1)
+
+    def _pinned(self) -> bool:
+        return any(d.type == "cuda" for d in self._steps)
+
+    def _pack_group(self, requests, rows: int) -> torch.Tensor:
+        """Raw-events requests -> one [rows, 5, bucket] float32 host buffer
+        in the largest request's bucket, the rows past the requests'
+        all-zero (no valid event)."""
+        bucket = next_bucket(max(len(r["x"]) for r in requests))
+        buf = torch.empty((rows, 5, bucket), dtype=torch.float32,
+                          pin_memory=self._pinned())
+        buf[len(requests):] = 0
+        for b, r in enumerate(requests):
+            native.pack_window(r["x"], r["y"], r["t"], r["p"], bucket,
+                               t0=0.0, out=buf[b].numpy())
         return buf
 
     def stats(self) -> dict:
@@ -201,6 +269,14 @@ class FlowServer:
         self._inflight.put(None)
         self._fetcher.join(timeout=30)
 
+    @staticmethod
+    def _batch_key(request):
+        """Requests coalesce into one batch iff their keys match: the same
+        kind and event bucket (voxel chunks: the same shape)."""
+        if isinstance(request, dict):
+            return ("events", next_bucket(len(request["x"])))
+        return ("voxel", np.shape(request))
+
     def __enter__(self):
         return self
 
@@ -209,21 +285,62 @@ class FlowServer:
 
     # ------------------------------------------------------------ workers
 
+    def _collect_group(self, leader):
+        """The leader request plus up to batch - 1 more compatible requests
+        arriving within the batching window. Returns (group, stop) where
+        ``stop`` means the close sentinel was seen."""
+        group = [leader]
+        try:
+            key = self._batch_key(leader[1])
+        except Exception:  # noqa: BLE001 - a malformed request fails alone
+            return group, False
+        deadline = time.perf_counter() + self._batch_window
+        while len(group) < self._batch:
+            timeout = deadline - time.perf_counter()
+            try:
+                nxt = (self._requests.get(timeout=timeout) if timeout > 0
+                       else self._requests.get_nowait())
+            except queue_mod.Empty:
+                break
+            if nxt is None:
+                return group, True
+            try:
+                compatible = self._batch_key(nxt[1]) == key
+            except Exception as e:  # noqa: BLE001 - delivered via future
+                nxt[0].set_exception(e)
+                continue
+            if not compatible:
+                self._carry = nxt   # the next group's leader
+                break
+            group.append(nxt)
+        return group, False
+
     def _dispatch_loop(self):
-        while True:
-            item = self._requests.get()
+        self._carry = None
+        stop = False
+        while not stop:
+            item = self._carry if self._carry is not None \
+                else self._requests.get()
+            self._carry = None
             if item is None:
                 break
-            fut, request, t0 = item
-            if not fut.set_running_or_notify_cancel():
+            group, stop = (self._collect_group(item) if self._batch > 1
+                           else ([item], False))
+            live = [(f, r, t) for f, r, t in group
+                    if f.set_running_or_notify_cancel()]
+            if not live:
                 continue
             try:
-                flows = self._launch(request)
-            except Exception as e:  # noqa: BLE001 - delivered via future
-                fut.set_exception(e)
+                parts = self._launch([r for _, r, _ in live])
+            except Exception as e:  # noqa: BLE001 - delivered via futures
+                for f, _, _ in live:
+                    f.set_exception(e)
                 continue
-            self._inflight.put((fut, flows[-1][0], t0))  # finest scale
+            self._inflight.put(([f for f, _, _ in live], parts,
+                                [t for _, _, t in live]))
         # fail what is still queued once closed
+        if self._carry is not None:
+            self._carry[0].set_exception(RuntimeError("server closed"))
         while True:
             try:
                 item = self._requests.get_nowait()
@@ -232,10 +349,24 @@ class FlowServer:
             if item is not None:
                 item[0].set_exception(RuntimeError("server closed"))
 
-    def _launch(self, request):
-        """Upload one request and launch its forward; returns the flows on
-        the device (launched, not waited for)."""
-        if isinstance(request, dict):
+    def _rows_by_device(self, rows: int):
+        """[(device, [row indices])]: row i of a batch runs on
+        ``devices[i]``; one entry per distinct device, in first-mention
+        order."""
+        if self._devices is None:
+            return [(self.device, list(range(rows)))]
+        out: dict = {}
+        for i, dev in enumerate(self._devices):
+            out.setdefault(dev, []).append(i)
+        return list(out.items())
+
+    def _launch(self, requests):
+        """Upload a group of compatible requests, padded to the batch, and
+        launch each device's rows as one forward; returns [(finest flows on
+        the device (launched, not waited for), row indices)]."""
+        rows = max(self._batch, len(requests))
+        events = isinstance(requests[0], dict)
+        if events:
             if self._input_bins != self._num_bins:
                 raise ValueError(
                     f"events are voxelized into data.num_frames = "
@@ -243,28 +374,48 @@ class FlowServer:
                     f"{self._input_bins}-bin chunks (data.num_chunks = "
                     f"{self._input_bins // self._num_bins}): send voxel "
                     "chunks")
-            dev = self.pack_events(request).to(self.device, non_blocking=True)
-            return self._events_step({
-                "x": dev[:, 0], "y": dev[:, 1], "t": dev[:, 2],
-                "p": dev[:, 3], "valid": dev[:, 4] != 0})
-        chunk = torch.as_tensor(np.asarray(request, np.float32))
-        return self._step(chunk[None].to(self.device))
+            buf = self._pack_group(requests, rows)
+        else:
+            first = np.asarray(requests[0], np.float32)
+            buf = torch.zeros((rows,) + first.shape, dtype=torch.float32,
+                              pin_memory=self._pinned())
+            for b, r in enumerate(requests):
+                buf[b] = torch.as_tensor(np.asarray(r, np.float32))
+        parts = []
+        for dev, idx in self._rows_by_device(rows):
+            part = buf[idx[0]:idx[-1] + 1] if idx == list(
+                range(idx[0], idx[-1] + 1)) else buf[idx]
+            part = part.to(dev, non_blocking=True)
+            voxel_step, events_step = self._steps[dev]
+            if events:
+                flows = events_step({
+                    "x": part[:, 0], "y": part[:, 1], "t": part[:, 2],
+                    "p": part[:, 3], "valid": part[:, 4] != 0})
+            else:
+                flows = voxel_step(part)
+            parts.append((flows[-1], idx))   # finest scale
+        return parts
 
     def _fetch_loop(self):
         while True:
             item = self._inflight.get()
             if item is None:
                 break
-            fut, flow, t0 = item
+            futs, parts, t0s = item
             try:
-                result = flow.cpu().numpy()  # waits for the device
-            except Exception as e:  # noqa: BLE001 - delivered via future
-                fut.set_exception(e)
+                rows = {}
+                for flow, idx in parts:
+                    host = flow.cpu().numpy()   # waits for the device
+                    rows.update(zip(idx, host))
+            except Exception as e:  # noqa: BLE001 - delivered via futures
+                for fut in futs:
+                    fut.set_exception(e)
                 continue
-            fut.set_result(result)
+            for i, fut in enumerate(futs):
+                fut.set_result(rows[i])
             now = time.perf_counter()
             with self._lock:
-                self._served += 1
-                self._latencies.append(now - t0)
+                self._served += len(futs)
+                self._latencies.extend(now - t0 for t0 in t0s)
                 if len(self._latencies) > 1024:
                     del self._latencies[:512]

@@ -1,5 +1,6 @@
-"""Supervised DSEC training on one card, the port's counterpart of
-``scripts/train_dsec.py``. Run from the repository root:
+"""Supervised DSEC training on one card or data-parallel over several,
+the port's counterpart of ``scripts/train_dsec.py``. Run from the
+repository root:
 
     python -m sdformerflow_tpu_torch.train_dsec \\
         --config configs/train_dsec_sdformerflow_en4.yaml --run_dir runs/en4 \\
@@ -11,6 +12,16 @@ the ``train`` and ``valid`` splits: raw event lists when the config sets
 ``data.events_input: list`` or ``data.preprocessed: false``, else voxel
 tensors (``data/dsec.py``). ``--synthetic`` trains on seeded synthetic
 samples at the config's ``loader.resolution`` instead.
+
+Data-parallel over several cards, one process each, ``loader.batch_size``
+the global batch (``training/train_loop.py``):
+
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m sdformerflow_tpu_torch.train_dsec --config <yaml> [...]
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) each process joins
+the group (NCCL; gloo with ``--device cpu``) and trains on
+``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 
 from .data.dsec import (DSECDatasetLite, DSECEventListDataset,
                         SyntheticEventFlowDataset, SyntheticEventListDataset)
+from .parallel import multihost
 from .training.config import load_config
 from .training.train_loop import train
 
@@ -68,9 +80,14 @@ def main(argv=None):
     else:
         cls = DSECEventListDataset if events_mode else DSECDatasetLite
         train_ds, valid_ds = cls(config, "train"), cls(config, "valid")
-    return train(config, train_ds, valid_ds, run_dir=args.run_dir,
-                 resume=args.resume, max_steps=args.max_steps,
-                 device=args.device)
+    joined = multihost.join_launcher_group(args.device)
+    try:
+        return train(config, train_ds, valid_ds, run_dir=args.run_dir,
+                     resume=args.resume, max_steps=args.max_steps,
+                     device=args.device)
+    finally:
+        if joined:
+            multihost.leave()
 
 
 if __name__ == "__main__":

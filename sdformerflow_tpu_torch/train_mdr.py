@@ -1,6 +1,6 @@
-"""Supervised MDR training on one card, validated on MVSEC, the port's
-counterpart of ``scripts/train_mdr.py`` (ANN or SNN by config). Run from
-the repository root:
+"""Supervised MDR training on one card or data-parallel over several,
+validated on MVSEC, the port's counterpart of ``scripts/train_mdr.py``
+(ANN or SNN by config). Run from the repository root:
 
     python -m sdformerflow_tpu_torch.train_mdr \\
         --config configs/train_mdr_sdformerflow.yaml --run_dir runs/mdr \\
@@ -17,6 +17,7 @@ on the host (``data/mdr.py``), the validation reads ``data.test_sequence``
 at ``data.event_interval`` (``data/mvsec.py``). The datasets crop, so the
 loop's own augmentation and crop are turned off and the model is built at
 the crop. ``--synthetic`` trains on seeded synthetic chunks at the crop.
+Under ``torchrun`` it trains data-parallel, as ``train_dsec`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from .data.adapters import MDRChunkAdapter, MvsecChunkAdapter
 from .data.dsec import SyntheticEventFlowDataset
 from .data.mdr import MDREventFlow
 from .data.mvsec import MvsecEventFlow, MvsecEventFlow_dt4
+from .parallel import multihost
 from .training.config import load_config
 from .training.train_loop import train
 
@@ -88,9 +90,14 @@ def main(argv=None):
     if args.path:
         config["data"]["path"] = args.path
     train_ds, valid_ds = build_datasets(config, synthetic=args.synthetic)
-    return train(loop_config(config), train_ds, valid_ds,
-                 run_dir=args.run_dir, resume=args.resume,
-                 max_steps=args.max_steps, device=args.device)
+    joined = multihost.join_launcher_group(args.device)
+    try:
+        return train(loop_config(config), train_ds, valid_ds,
+                     run_dir=args.run_dir, resume=args.resume,
+                     max_steps=args.max_steps, device=args.device)
+    finally:
+        if joined:
+            multihost.leave()
 
 
 if __name__ == "__main__":

@@ -2,6 +2,11 @@
 ``torch.save``: one file per epoch under a directory, the newest three
 kept. A checkpoint holds the model's state (parameters and BN running
 statistics), the optimizer's state, the step and the epoch.
+
+Under data parallelism (a ``group``) every rank holds the same state: rank
+0 writes and every rank waits for it at a barrier; every rank reads the
+file, then takes rank 0's tensors (JAX's multi-process orbax save and
+restore are collective in the same way).
 """
 
 from __future__ import annotations
@@ -11,6 +16,8 @@ import re
 from typing import Optional
 
 import torch
+
+from ..parallel.multihost import barrier, broadcast_state, rank_of
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 
@@ -27,9 +34,14 @@ def _epochs(ckpt_dir: str):
 
 
 def save_checkpoint(ckpt_dir: str, model, optimizer, epoch: int, step: int,
-                    *, metrics: Optional[dict] = None, max_to_keep: int = 3):
+                    *, metrics: Optional[dict] = None, max_to_keep: int = 3,
+                    group=None):
     """Write the checkpoint of ``epoch`` (atomically) and delete all but
-    the ``max_to_keep`` newest."""
+    the ``max_to_keep`` newest; with a ``group``, rank 0 writes and every
+    rank returns once it has."""
+    if rank_of(group) != 0:
+        barrier(group)
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"model": model.state_dict(),
                "optimizer": optimizer.state_dict(),
@@ -40,6 +52,7 @@ def save_checkpoint(ckpt_dir: str, model, optimizer, epoch: int, step: int,
     os.replace(path + ".tmp", path)
     for old in _epochs(ckpt_dir)[:-max_to_keep]:
         os.remove(_path(ckpt_dir, old))
+    barrier(group)
 
 
 def latest_epoch(ckpt_dir: str) -> Optional[int]:
@@ -48,10 +61,11 @@ def latest_epoch(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, model, optimizer=None,
-                       epoch: Optional[int] = None):
+                       epoch: Optional[int] = None, group=None):
     """Load a checkpoint (the newest by default) into ``model`` and, unless
     it is None (evaluation, serving), ``optimizer``; returns (step,
-    restored epoch)."""
+    restored epoch). With a ``group`` every rank loads it, then takes rank
+    0's tensors."""
     if epoch is None:
         epoch = latest_epoch(ckpt_dir)
     if epoch is None:
@@ -62,4 +76,5 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer=None,
     model.load_state_dict(payload["model"])
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
+    broadcast_state(model, optimizer, group)
     return payload["step"], payload["epoch"]

@@ -23,6 +23,9 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.multihost import active
 
 
 def multistep_schedule(lr: float, milestones: Sequence[int],
@@ -140,12 +143,20 @@ class FlatOptimizer:
         return params
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, group=None) -> torch.Tensor:
         """One micro-step from the parameters' ``.grad``: the update at
         every ``num_acc``-th call; returns the global norm of this call's
-        gradient before clipping (a device scalar, not fetched)."""
+        gradient before clipping (a device scalar, not fetched).
+
+        With a data-parallel ``group`` each rank's ``.grad`` is the
+        gradient of its share of the global loss (``losses.py``): one
+        all-reduce (SUM) of the flat gradient, before the norm, the clip,
+        the skip and the accumulation, makes it the global step's on every
+        rank, so that every rank takes the same decisions and update."""
         params = self._trained()
         g = torch.cat([p.grad.reshape(-1) for p in params])
+        if active(group):
+            dist.all_reduce(g, group=group)
         g_norm = torch.linalg.vector_norm(g)
         if self.num_acc == 1:
             self._update(params, g, g_norm)

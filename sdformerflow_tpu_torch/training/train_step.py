@@ -20,6 +20,7 @@ from ..models.spiking_layers import TorchBatchNorm, collect_sites
 from ..ops.hopper_embed import fused_embed_forward
 from ..ops.hopper_voxel import voxel_batch_signed
 from ..ops.normalization import encode_input
+from ..parallel.multihost import all_reduce_sum
 from .evaluate import event_footprint_mask
 from .remat import Remat
 
@@ -60,21 +61,26 @@ def center_crop(chunk: torch.Tensor, crop) -> torch.Tensor:
 
 
 def _set_mode(model: nn.Module, *, train: bool, update_bn_stats: bool = True,
-              generator=None):
+              generator=None, group=None):
     """Train or eval mode; in train mode whether BN updates its running
-    statistics and the generator drop-path draws from."""
+    statistics, the generator drop-path draws from, and the data-parallel
+    group of every module that takes one (the batch statistics, the
+    drop-path draws, the swin blocks' gathered rows)."""
     model.train(train)
     for m in model.modules():
         if isinstance(m, TorchBatchNorm):
             m.update_running_stats = update_bn_stats
-        elif hasattr(m, "drop_path_generator"):
+        if hasattr(m, "group"):
+            m.group = group
+        if hasattr(m, "drop_path_generator"):
             m.drop_path_generator = generator
 
 
 def _model_input(chunk, batch_crop, voxelize, crop, *, encoding, polarity,
-                 norm_input, spike_th):
-    """Voxelize raw events (``voxelize``) and crop, then encode: the
-    model's [B, bins, 2, H, W] input."""
+                 norm_input, spike_th, group=None, per_row=False):
+    """Voxelize raw events (``voxelize``) and crop, then encode (over the
+    rows of every rank of ``group``; each row on its own with
+    ``per_row``): the model's [B, bins, 2, H, W] input."""
     if voxelize is not None and isinstance(chunk, dict):
         chunk = voxelize_batch(chunk, **voxelize)
         if batch_crop is not None:
@@ -83,7 +89,8 @@ def _model_input(chunk, batch_crop, voxelize, crop, *, encoding, polarity,
         chunk = center_crop(chunk, crop)
     if chunk.dim() == 4 or encoding == "voxel":
         return encode_input(chunk, encoding=encoding, polarity=polarity,
-                            norm_input=norm_input, spike_th=spike_th)
+                            norm_input=norm_input, spike_th=spike_th,
+                            group=group, per_row=per_row)
     return chunk
 
 
@@ -91,7 +98,7 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
                     polarity=True, norm_input="minmax", spike_th=None,
                     flow_scaling=1.0, gamma=None, mask_events=False,
                     voxelize=None, compute_dtype=None, remat=None, crop=None,
-                    generator=None):
+                    generator=None, group=None):
     """Return ``train_step(batch) -> {"loss", "grad_norm"}`` (device
     scalars): forward in train mode (batch-statistics BN, running statistics
     updated, drop-path from ``generator``), the supervised flow loss over
@@ -115,11 +122,20 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     :class:`training.remat.Remat`: the backward recomputes each block but
     for what the policy keeps, with the forward's drop-path masks, so the
     gradients are those of the plain step (the ANN family).
+
+    ``group`` (a ``torch.distributed`` process group, or None) makes the
+    step one rank's share of the global batch's step, as JAX's step over a
+    data-sharded batch: ``batch`` holds this rank's rows (raw events are
+    voxelized here, K3 on this rank's rows only); the batch statistics of
+    every norm and the drop-path draws span every rank's rows, the loss is
+    this rank's share of the global loss, the optimizer all-reduces the
+    flat gradient, and the returned loss is the global one. A group of one
+    is the one-process step.
     """
     params = dict(model.named_parameters())
     param_dtype = next(iter(params.values())).dtype
     kw = dict(encoding=encoding, polarity=polarity, norm_input=norm_input,
-              spike_th=spike_th)
+              spike_th=spike_th, group=group)
 
     def forward(x):
         if compute_dtype is None:
@@ -132,7 +148,7 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
                       else Remat(model, remat, generator))
 
     def train_step(batch):
-        _set_mode(model, train=True, generator=generator)
+        _set_mode(model, train=True, generator=generator, group=group)
         chunk = batch["events"] if "events" in batch else batch["chunk"]
         x = _model_input(chunk, crop, voxelize, None, **kw)
         mask = batch["mask"]
@@ -143,12 +159,14 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
             flows = [f.to(torch.promote_types(f.dtype, torch.float32))
                      for f in forward(x)]
         loss = flow_loss_supervised(flows, batch["label"], mask,
-                                    flow_scaling=flow_scaling, gamma=gamma)
+                                    flow_scaling=flow_scaling, gamma=gamma,
+                                    group=group)
         loss.backward()
         if remat is not None:
             rematerialized.done()
-        grad_norm = optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        grad_norm = optimizer.step(group=group)
+        return {"loss": all_reduce_sum(loss.detach(), group),
+                "grad_norm": grad_norm}
 
     train_step.model = model
     return train_step
@@ -163,11 +181,12 @@ class EvalStep(nn.Module):
 
     def __init__(self, model: nn.Module, *, encoding, polarity, norm_input,
                  spike_th, compute_dtype, voxelize, crop, fused_embed,
-                 num_steps):
+                 num_steps, group=None, per_row=False):
         super().__init__()
         self.model = model
         self.input_kw = dict(encoding=encoding, polarity=polarity,
-                             norm_input=norm_input, spike_th=spike_th)
+                             norm_input=norm_input, spike_th=spike_th,
+                             group=group, per_row=per_row)
         self.compute_dtype, self.voxelize, self.crop = (compute_dtype,
                                                         voxelize, crop)
         self.fused_embed, self.num_steps = fused_embed, num_steps
@@ -190,7 +209,7 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                    norm_input="minmax", spike_th=None, compute_dtype=None,
                    voxelize=None, crop=None, use_batch_stats=False,
                    fused_embed=False, num_steps=None,
-                   collect_spike_rates=False):
+                   collect_spike_rates=False, group=None, per_row=False):
     """Return ``eval_step(chunk) -> [flow]`` (coarse -> fine, float32).
 
     ``chunk``: [B, bins, H, W] signed voxels (or [B, bins, 2, H, W]) on the
@@ -208,7 +227,15 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
     ``use_batch_stats=True`` validates as the reference does at batch 1:
     train mode (batch statistics, drop-path drawn from a generator seeded 0
     at every call, as JAX passes ``PRNGKey(0)``) without updating the
-    running statistics.
+    running statistics; with a data-parallel ``group`` the statistics (and
+    the input's normalization) are those of every rank's rows, as JAX's
+    over its sharded batch.
+
+    ``per_row=True`` makes each row's flow its batch-1 flow, whatever rows
+    it is batched with (the batched server's requests): each row of the
+    input is normalized on its own (``ops/normalization.py``) and the
+    model's spiking swin blocks refold each row on its own (their
+    ``rows_apart``, set here on the model the step runs).
 
     ``fused_embed=True`` computes the MS_PED patch embed with the
     channels-second kernels K4 and K4a (``ops/hopper_embed.py``) over
@@ -252,14 +279,22 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
                       norm_input=norm_input, spike_th=spike_th,
                       compute_dtype=compute_dtype, voxelize=voxelize,
                       crop=crop, fused_embed=fused_embed,
-                      num_steps=num_steps).eval()
+                      num_steps=num_steps, group=group,
+                      per_row=per_row).eval()
+    if per_row:
+        for m in model.modules():
+            if hasattr(m, "rows_apart"):
+                m.rows_apart = True
 
     def eval_step(chunk):
         with torch.inference_mode():
             if use_batch_stats:
                 dev = next(model.parameters()).device
                 _set_mode(model, train=True, update_bn_stats=False,
-                          generator=torch.Generator(dev).manual_seed(0))
+                          generator=torch.Generator(dev).manual_seed(0),
+                          group=group)
+            elif group is not None:
+                _set_mode(model, train=False, group=group)
             elif model.training:
                 model.eval()
             if not collect_spike_rates:

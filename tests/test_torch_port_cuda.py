@@ -785,3 +785,27 @@ def test_zoo_models_launch_at_every_psn_site(dev, name, embed, blocks):
         == calls[0] > 0
     assert all(bool(torch.isfinite(p.grad).all())
                for p in model.parameters() if p.grad is not None)
+
+
+def test_global_bn_statistics_at_a_k2_site_over_two_ranks(dev, tmp_path):
+    """A BN -> PSN site (K2 forward with the affine of the global batch
+    statistics, K2b backward through them) over two gloo ranks on the one
+    card, each holding two rows of a batch of 4, against one process on
+    the whole batch on the same card: the ranks' spikes are one process's
+    rows, and the gradients and running statistics its own (float32
+    summation order aside)."""
+    import torch_port_dp_ranks as R
+    ranks = R.join(R.spawn("k2_site_case", 2, str(tmp_path)), str(tmp_path),
+                   timeout=600)
+    for r in ranks:
+        assert r["launches"] == (1, 1)
+        flipped = int((r["y"] != r["y_one"]).sum())
+        assert flipped <= 1e-3 * r["y"].numel()
+        assert 0.0 < r["y"].float().mean().item() < 1.0
+        top = r["dx_one"].abs().max()
+        assert (r["dx"] - r["dx_one"]).abs().max() <= 1e-4 * top
+        for got, want in zip(r["grads"] + r["stats"],
+                             r["grads_one"] + r["stats_one"]):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * want.abs().max().item())
+    assert torch.equal(ranks[0]["grads"][0], ranks[1]["grads"][0])

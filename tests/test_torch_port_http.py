@@ -153,9 +153,12 @@ def test_serve_cli_port_0_and_sigterm():
             proc.wait(timeout=30)
 
 
-def test_serve_refuses_data_parallel():
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 9"):
-        serve.main(["--train_config", TINY, "--device", "cpu", "--dp", "2"])
+def test_serve_refuses_data_parallel(monkeypatch):
+    """``--dp N`` on the card needs N visible cards (here one)."""
+    monkeypatch.setattr(serve.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(serve.torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--dp 2 needs 2 CUDA devices"):
+        serve.main(["--train_config", TINY, "--dp", "2"])
 
 
 def test_bench_serving_on_cpu(tmp_path):

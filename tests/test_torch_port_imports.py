@@ -4,11 +4,17 @@ or JAX-package module in ``sys.modules``, and none of cv2, h5py, pandas or
 PyTables, which the card's host lacks; importing starts no kernel build
 (nvcc and g++ are needed only when a kernel or the event packer is first
 called). The SNN zoo's registry names (with a recurrent neuron and a
-non-BN norm) build and run a forward there, importing no JAX either."""
+non-BN norm) build and run a forward there, importing no JAX either. The
+ranks of a data-parallel group (two processes over gloo) import every
+module and run a batch-statistics norm in the group, importing no JAX."""
 
 import subprocess
 import sys
 import textwrap
+
+import torch
+
+import torch_port_dp_ranks as R
 
 PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
@@ -66,5 +72,19 @@ def test_port_imports_no_jax():
                  "models.spiking_layers", "models.spiking_swin",
                  "models.spiking_patch_embed", "models.snn_flownet",
                  "models.registry", "training.from_jax", "utils.flops",
-                 "utils.energy", "utils.gradients", "energy_sensitivity"):
+                 "utils.energy", "utils.gradients", "energy_sensitivity",
+                 "parallel.multihost"):
         assert f"sdformerflow_tpu_torch.{name}" in out[4:], name
+
+
+def test_data_parallel_ranks_import_no_jax(tmp_path):
+    procs = R.spawn("import_probe", 2, str(tmp_path))
+    ranks = R.join(procs, str(tmp_path), timeout=120)
+    assert [r["foreign_modules"] for r in ranks] == [[], []]
+    assert ranks[0]["modules"] >= 68
+    # the ranks' rows (offset by the rank) make one batch: equal statistics
+    assert torch.equal(ranks[0]["running_mean"], ranks[1]["running_mean"])
+    want = 0.1 * (torch.arange(12.0).reshape(4, 3).mean(0) + 0.5)
+    torch.testing.assert_close(ranks[0]["running_mean"], want)
+    assert [r["mean_of_ranks"] for r in ranks] == [0.5, 0.5]
+    assert all(torch.equal(r["broadcast"], torch.ones(3)) for r in ranks)
