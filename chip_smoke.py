@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, train and DSEC evaluation paths and its
-MDR / MVSEC slice once on one NVIDIA H100, for the en4 SNN, the rest of the
-SNN zoo and the ANN family.
+"""Drive the PyTorch port's serving, train and DSEC evaluation paths, its
+MDR / MVSEC slice and its raw-data preparation once on one NVIDIA H100, for
+the en4 SNN, the rest of the SNN zoo and the ANN family.
 
 Run from the root of the repository, with no arguments:
 
@@ -75,7 +75,7 @@ Phases (any failure exits non-zero):
    checks as K2); then
    ``make_eval_step(fused_embed=True, num_steps=10)`` on the en4 bf16
    model at 288x384: K4 8, K4a 6 and K1 12 launches a request, K2 6 fewer
-   than the module path's; latency over 64 requests and device busy, fused
+   than the module path's; latency over 32 requests and device busy, fused
    and module path interleaved; ``FlowServer(s2d=True)`` beside
    ``s2d=False`` the same way; and float32 A/Bs (96x128 and full width for
    the fused embed, 96x128 for s2d) holding each K4 and K4a launch against
@@ -101,7 +101,7 @@ Phases (any failure exits non-zero):
    labels, masks and chunks; K1 12, K2 45 (and K3 1, event layout)
    launches a batch; the event layout equals the voxel layout, the event
    mask moves the metrics, the PNGs read back within 1/128 px; evaluation
-   windows/s over 64 windows (the valid split cycled, the first batch
+   windows/s over 32 windows (the valid split cycled, the first batch
    left out; host clock, reads included), and a batch split into reading,
    host-to-device copy and step, with the card's busy time (profiler); the
    trainer
@@ -115,8 +115,8 @@ Phases (any failure exits non-zero):
    swin-v2, PatchEmbedLocal, patch (10,4,4), window (2,9,9), 20 bins,
    288x384, seeded random weights): the float32 forward (TF32 off) against
    the float64 forward of the same weights, within 1e-4 of the largest
-   flow; ``FlowServer`` in bf16 on voxel requests (latency over 64 one at
-   a time, windows/s over 64 queued, device busy, the bf16 flows within a
+   flow; ``FlowServer`` in bf16 on voxel requests (latency over 32 one at
+   a time, windows/s over 32 queued, device busy, the bf16 flows within a
    mean EPE of 5% of the mean |flow| of the float32 forward, an events
    request refused); what a batch-1 forward keeps for the backward and the
    step's peak, plain and under remat ``dots`` and ``all``, whose gradients
@@ -127,7 +127,7 @@ Phases (any failure exits non-zero):
    steps, peak memory, device busy per batch-8 step; ``eval_dsec.main`` in
    bf16 from a reference-named ``.pt`` on phase 12's 480x640 tree with a
    doubleseq split (two 10-bin chunks a window), the metrics within 1e-9
-   of the float64 recompute, windows/s over the split cycled to 64
+   of the float64 recompute, windows/s over the split cycled to 32
    windows (batch 1, the first left out); STTFlowNet_4en at the MDR geometry
    (``configs/train_mdr_stt_voxel.yaml``, 256x256, 10 bins): a bf16
    forward (EPE bound as above) and a float32 train step; MultiResUNet
@@ -149,11 +149,11 @@ Phases (any failure exits non-zero):
    against its float64 twin; the step's p50 / p90, device busy (profiler)
    and peak memory; ``train_mdr`` with ``configs/train_mdr_stt_voxel.yaml``
    for 2 steps, launching no kernel; ``eval_mvsec`` with
-   ``configs/eval_mvsec.yaml`` on indoor_flying1 at dt1 and dt4 (64
+   ``configs/eval_mvsec.yaml`` on indoor_flying1 at dt1 and dt4 (32
    windows each, the en4 run's checkpoint): K1 10 and K2 53 launches a
    window, the run's eval step on its first window with every K1 and K2
    launch held against its plain twin, AEE, PE1-3, outlier and AAE within
-   1e-9 of the float64 numpy recompute, windows/s over the 63 windows
+   1e-9 of the float64 numpy recompute, windows/s over the 31 windows
    after the first and a window's read (h5 + host voxelizer), H2D and
    step + metrics ms. The JSON line ``{"mdr_mvsec": ...}`` before the
    kernels line holds them;
@@ -236,7 +236,7 @@ Phases (any failure exits non-zero):
    batch: a batched forward's K1 and K2 outputs against its rows' batch-1
    forwards (at most 1e-3 of the spikes flipped), K3 a row of an events
    group against its twin, K1 12, K2 45 launches a batched forward and K3
-   one a row, windows/s of 64 queued requests beside ``devices=None``;
+   one a row, windows/s of 32 queued requests beside ``devices=None``;
    the en4 float32 train step of a global batch of 2 at 288x384 over two
    gloo ranks on the one card (``torch.multiprocessing``, one row a rank,
    the spiking swin blocks' attention on the gathered batch) against one
@@ -252,7 +252,28 @@ Phases (any failure exits non-zero):
    kernels: metrics.jsonl and the checkpoint equal bit for bit. The JSON
    line ``{"dp": ...}`` before the kernels line holds them, and each
    kernel entry's ``launches_dp_step`` and ``launches_dp_serving`` the
-   launches of those runs.
+   launches of those runs;
+20. the raw-data preparation, on trees the port's HDF5 writer makes here
+   (the card's host has no h5py): a raw DSEC sequence at 480x640
+   (``events.h5`` in DSEC's dtypes, chunked with shuffle and deflate,
+   ``ms_to_idx``, ``t_offset``; 3 GT windows of 100 ms and 0.6-1.0 x 2^20
+   events; a rectify map that is not the identity, sending events into
+   (-1, 0) and past the frame; 16-bit RGB flow PNGs with a valid channel)
+   through ``preprocess_dsec --input voxel --make_lists``: K3 once a window
+   (counted from 0 over the run), each launch within 1e-4 of its plain
+   twin's largest value on the card, timed alone, in a graph and beside
+   the twin and the bound; a window's read, voxel and write ms; the GT and
+   mask tensors equal to the PNGs; then ``eval_dsec --max_batches 2`` (en4
+   at full width, bf16: K1 12 and K2 45 a batch, metrics within 1e-9 of
+   the float64 recompute) on the tree just written, and ``--input cnt``
+   and ``list`` (no launch; counts and rows checked against the voxel
+   run's rectified events). A raw MVSEC ``indoor_flying4`` at 260x346
+   (events, images, GT flow at 20 Hz, chunked with deflate) through
+   ``encode_mvsec`` at dt 1 and dt 4 (the event rows equal to the raw
+   rows), then ``eval_mvsec --max_batches 2`` at each (K1 10, K2 53 a
+   window). The JSON line ``{"data_prep": ...}`` before the kernels line
+   holds them, and each kernel entry's ``launches_data_prep`` the launches
+   of each run.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -276,8 +297,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "train_dsec_sdformerflow_en4.yaml")
 VALID_CONFIG = os.path.join(ROOT, "configs", "valid_dsec.yaml")
 SEED = 0
-N_LATENCY = 64     # requests sent one at a time: the latency percentiles
-N_QUEUED = 64      # requests queued at once: the throughput
+N_LATENCY = 32     # requests sent one at a time: the latency percentiles
+N_QUEUED = 32      # requests queued at once: the throughput
 # a Gaussian-input comparison may differ where a potential lands within
 # float32 rounding of the threshold; more than this share of flipped
 # output spikes is a fault, not rounding
@@ -1979,7 +2000,7 @@ def phase_train_ab(torch, dev, config):
 # the fused-embed eval path (K4 + K4a through make_eval_step(fused_embed=
 # True)), K2c, and the s2d embed (FlowServer(s2d=True))
 
-N_EMBED_REQUESTS = 64   # interleaved latency requests per path
+N_EMBED_REQUESTS = 32   # interleaved latency requests per path
 N_EMBED_COUNTED = 16    # requests of the counted run of each path
 # K4 vs its twin on Gaussian inputs: the largest |d| over the twin's largest
 # magnitude. float32: the sums run in another order (1e-5); bfloat16: one
@@ -2666,7 +2687,7 @@ def phase_odd_m(torch, dev):
 # the DSEC evaluation protocol: eval_dsec.main on a DSEC tree at 480x640
 
 DSEC_VALID, DSEC_TRAIN = 4, 2
-DSEC_TIMED = 64                # the timed runs: the valid split cycled
+DSEC_TIMED = 32                # the timed runs: the valid split cycled
 DSEC_SEQ = "zurich_city_01_a"
 DSEC_T0_US = 49_000_000_000    # an absolute DSEC-like first timestamp
 DSEC_T_STEP_US = 2500          # 36 steps: a 90 ms window
@@ -3773,9 +3794,9 @@ MVSEC_FRAME_S = 0.032          # the span of an MVSEC event file
 # 2 batches; the batcher reads the batch after the last it yields
 MDR_VALID_SAMPLE = 4
 MDR_TIMED_STEPS = 8            # timed on one batch after the run
-# eval_mvsec --max_batches (batch 1): 63 timed after the first, as the
+# eval_mvsec --max_batches (batch 1): 31 timed after the first, as the
 # timed runs of phase 12
-MVSEC_EVAL = 64
+MVSEC_EVAL = 32
 # samples the trees hold GT and event files for: the validation's and the
 # eval's reads, one batch past the last
 MVSEC_GT = {"outdoor_day1": (MDR_VALID_SAMPLE // 4 + 2) * 4,
@@ -6163,6 +6184,415 @@ def phase_dp(torch, dev, config, state_dict, card):
                 phase_s=phase_s)
 
 
+# ----------------------------------------------------------- phase 20
+# the raw-data preparation: preprocess_dsec and encode_mvsec on raw trees
+# the port's own HDF5 writer makes here (the card's host has no h5py),
+# chained into eval_dsec and eval_mvsec
+
+PREP_WINDOWS = 3               # DSEC GT windows of 100 ms (flow at 10 Hz)
+PREP_WINDOW_US = 100_000
+PREP_CHUNK_ROWS = 1 << 16      # events a chunk of events/{p,x,y,t}
+PREP_DEFLATE = 4               # the zlib level of every chunked dataset
+PREP_EDGE = 0.05               # the share of events on the sensor's edges
+PREP_K3_TOL = 1e-4             # K3 against its twin: K3's bound (phase 4)
+PREP_EVAL_BATCHES = 2
+MVSEC_PREP_SEQ = "indoor_flying4"   # its valid range starts at frame 196
+MVSEC_PREP_FRAMES = 212        # image frames: frame 198 + dt4 + 8 past it
+MVSEC_PREP_EVENTS = 1 << 13    # events an image frame (~32 ms)
+MVSEC_GT_S = 0.05              # the distorted GT flow at 20 Hz
+
+
+def rectify_map(rng):
+    """A DSEC rectify map [480, 640, 2] that is not the identity: x' =
+    1.004 x - 0.6 plus a wave of 0.3 px and 0.05 px of jitter, y' alike.
+    The first column and row land in (-1, 0), where truncation toward zero
+    gives the corner past them a negative weight; the last ones land at
+    640 / 480 and past, outside the grid."""
+    h, w = SENSOR
+    gy, gx = np.mgrid[0:h, 0:w].astype(np.float64)
+    rx = 1.004 * gx - 0.6 + 0.3 * np.sin(gy / 37.0)
+    ry = 1.005 * gy - 0.55 + 0.3 * np.cos(gx / 41.0)
+    return (np.stack([rx, ry], -1)
+            + rng.uniform(-0.05, 0.05, (h, w, 2))).astype(np.float32)
+
+
+def write_raw_dsec(torch, root, seq, rng):
+    """A raw DSEC sequence at 480x640 (``train_events/<seq>/events/left``
+    and ``train_optical_flow/<seq>/flow``) by the port's HDF5 writer:
+    ``events.h5`` with ``events/{p,x,y,t}`` in DSEC's dtypes (u8, u16, u16,
+    i64 us from ``t_offset``), ``ms_to_idx`` (u64) and ``t_offset``,
+    chunked (``PREP_CHUNK_ROWS``) with shuffle and deflate; PREP_WINDOWS GT
+    windows of 0.6-1.0 x 2^20 events on 45% of the frame plus PREP_EDGE on
+    its first and last columns and rows; ``rectify_map.h5``
+    (:func:`rectify_map`); a 16-bit RGB flow PNG a window (a smooth field of
+    up to 14 px, ~70% valid) and ``forward_timestamps.txt``. Returns the
+    events a window, the GT flows and masks as the PNGs hold them, and the
+    files' bytes."""
+    import torch.nn.functional as F
+    from sdformerflow_tpu_torch.data import hdf5
+    from sdformerflow_tpu_torch.utils.visualization import write_png
+    h, w = SENSOR
+    counts, parts = [], []
+    for i in range(PREP_WINDOWS):
+        m = int(rng.uniform(0.6, 1.0) * K3_EVENTS)
+        idx = rng.choice(active_pixels(torch, rng), m)
+        x, y = (idx % w).astype(np.uint16), (idx // w).astype(np.uint16)
+        for a, n in ((x, w), (y, h)):
+            edge = rng.random(m) < PREP_EDGE
+            a[edge] = rng.choice([0, n - 1], int(edge.sum()))
+        t = np.sort(rng.integers(i * PREP_WINDOW_US, (i + 1) * PREP_WINDOW_US,
+                                 m)).astype(np.int64)
+        parts.append((x, y, t, rng.integers(0, 2, m).astype(np.uint8)))
+        counts.append(m)
+    x, y, t, p = (np.concatenate(a) for a in zip(*parts))
+    ms = np.arange(PREP_WINDOWS * PREP_WINDOW_US // 1000 + 1) * 1000
+    ev_dir = os.path.join(root, "train_events", seq, "events", "left")
+    flow_dir = os.path.join(root, "train_optical_flow", seq, "flow")
+    os.makedirs(ev_dir)
+    os.makedirs(os.path.join(flow_dir, "forward"))
+    events = os.path.join(ev_dir, "events.h5")
+    hdf5.write(events, {"events": {"p": p, "x": x, "y": y, "t": t},
+                        "ms_to_idx": np.searchsorted(t, ms).astype(np.uint64),
+                        "t_offset": np.int64(DSEC_T0_US)},
+               chunks=PREP_CHUNK_ROWS, deflate=PREP_DEFLATE, shuffle=True)
+    hdf5.write(os.path.join(ev_dir, "rectify_map.h5"),
+               {"rectify_map": rectify_map(rng)})
+    bounds = DSEC_T0_US + PREP_WINDOW_US * np.arange(PREP_WINDOWS + 1)
+    np.savetxt(os.path.join(flow_dir, "forward_timestamps.txt"),
+               np.stack([bounds[:-1], bounds[1:]], 1), delimiter=",",
+               fmt="%d")
+    flows, masks = [], []
+    for i in range(PREP_WINDOWS):
+        coarse = torch.from_numpy(rng.uniform(-14.0, 14.0, (1, 2, 7, 9)))
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=True)[0].numpy()
+        png = np.empty((h, w, 3), np.uint16)
+        png[..., :2] = np.rint(flow * 128 + 2 ** 15).transpose(1, 2, 0)
+        png[..., 2] = rng.random((h, w)) < 0.7
+        write_png(os.path.join(flow_dir, "forward", f"{i:06d}.png"), png)
+        flows.append(((png[..., :2].astype(float) - 2 ** 15) / 128.0)
+                     .transpose(2, 0, 1).astype(np.float32))
+        masks.append(png[..., 2].astype(bool))
+    with hdf5.File(events) as f:
+        ds = f["events/t"]
+        check(len(ds.chunk_index()) == -(-len(t) // PREP_CHUNK_ROWS)
+              and np.array_equal(ds[()], t)
+              and np.array_equal(f["events/x"][()], x),
+              f"[20] {events}: the port's reader does not give back what "
+              f"its writer wrote")
+    raw = nbytes_np(x, y, t, p)
+    return dict(counts=counts, flows=flows, masks=masks,
+                events_h5_bytes=os.path.getsize(events), events_raw_bytes=raw)
+
+
+def nbytes_np(*arrays):
+    return int(sum(a.nbytes for a in arrays))
+
+
+def write_raw_mvsec(root, seq, rng):
+    """A raw MVSEC sequence at 260x346 by the port's HDF5 writer:
+    ``<seq>_data.hdf5`` with ``davis/left/events`` (x, y, ts, p rows,
+    float64, MVSEC_PREP_EVENTS a ~32 ms image frame, p in {-1, 1}),
+    ``image_raw`` (u8 frames, which encode_mvsec never reads),
+    ``image_raw_event_inds`` and ``image_raw_ts``, chunked with deflate
+    (the timestamps contiguous); ``<seq>_gt.hdf5`` with
+    ``davis/left/flow_dist`` ([M, 2, H, W] float32 at 20 Hz: a smooth
+    field of up to 8 px, chunked a frame with shuffle and deflate) and
+    ``flow_dist_ts``. Returns the rows, frame indices and the bytes."""
+    from sdformerflow_tpu_torch.data import hdf5
+    h, w = MDR_SENSOR
+    n = MVSEC_PREP_FRAMES
+    ts = 1.5e9 + 0.032 * np.arange(n) + rng.uniform(0, 1e-3, n)
+    m = MVSEC_PREP_EVENTS * n
+    t = np.sort(rng.uniform(ts[0] - 0.032, ts[-1], m))
+    raw = np.stack([rng.integers(0, w, m), rng.integers(0, h, m), t,
+                    rng.choice([-1.0, 1.0], m)], 1).astype(np.float64)
+    inds = np.searchsorted(t, ts).astype(np.int64)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = ((xx[None] + 3 * np.arange(n)[:, None, None]) % 256).astype(
+        np.uint8)
+    gt_ts = ts[0] - MVSEC_GT_S + MVSEC_GT_S * np.arange(
+        int((ts[-1] - ts[0]) / MVSEC_GT_S) + 4)
+    a = rng.uniform(-8, 8, (len(gt_ts), 4, 1, 1))
+    u, v = xx / w, yy / h
+    flow = np.stack([a[:, 0] * u + a[:, 1] * v, a[:, 2] * u - a[:, 3] * v],
+                    1).astype(np.float32)
+    base = os.path.join(root, seq)
+    os.makedirs(base)
+    data = os.path.join(base, f"{seq}_data.hdf5")
+    gt = os.path.join(base, f"{seq}_gt.hdf5")
+    hdf5.write(data, {"davis": {"left": {
+        "events": raw, "image_raw": img, "image_raw_event_inds": inds,
+        "image_raw_ts": ts}}}, chunks={
+            "davis/left/events": (1 << 14, 4),
+            "davis/left/image_raw": (1, h, w),
+            "davis/left/image_raw_event_inds": (64,)},
+        deflate=PREP_DEFLATE)
+    hdf5.write(gt, {"davis": {"left": {"flow_dist": flow,
+                                       "flow_dist_ts": gt_ts}}},
+               chunks={"davis/left/flow_dist": (1, 2, h, w)},
+               deflate=PREP_DEFLATE, shuffle=True)
+    return dict(raw=raw, inds=inds, data_bytes=os.path.getsize(data),
+                gt_bytes=os.path.getsize(gt), gt_frames=len(gt_ts),
+                raw_bytes=nbytes_np(raw, img, flow))
+
+
+def prep_eval(torch, main, argv, expect, label):
+    """``main(argv)`` through :func:`eval_run`: the launches it must make
+    (``expect``), the batches it must read and its metrics within
+    DSEC_EVAL_TOL of the float64 recompute."""
+    rec = eval_run(torch, main, argv)
+    res = rec["results"]
+    check(res["num_batches"] == res["num_samples"] == PREP_EVAL_BATCHES
+          and all(np.isfinite(res[k]) for k in DSEC_METRICS),
+          f"[20] {label}: results {res}")
+    check(rec["launches"] == expect, f"[20] {label}: launches "
+          f"{rec['launches']}, expected {expect}")
+    want, _ = recompute_numpy(rec)
+    err = max(abs(res[k] - want[k]) / max(abs(want[k]), 1e-300)
+              for k in DSEC_METRICS)
+    check(err <= DSEC_EVAL_TOL, f"[20] {label}: metrics {err:.3e} from the "
+          f"float64 recompute")
+    return dict(results={k: res[k] for k in DSEC_METRICS},
+                launches=rec["launches"], main_s=rec["main_s"],
+                rel_err=err)
+
+
+def phase_prep(torch, dev, config, state_dict, card):
+    """The port's raw-data preparation on the card's host: a raw DSEC
+    sequence and a raw MVSEC sequence written by the port's HDF5 writer
+    (chunked, deflate, shuffle), ``preprocess_dsec`` (voxel on the card by
+    K3, then cnt and list) and ``encode_mvsec`` at dt 1 and dt 4, each
+    output chained into ``eval_dsec`` / ``eval_mvsec``."""
+    import io
+    import shutil
+    import yaml
+    from sdformerflow_tpu_torch import (encode_mvsec, eval_dsec, eval_mvsec,
+                                        preprocess_dsec)
+    from sdformerflow_tpu_torch.data.loader_utils import get_events_h5
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.ops import hopper_voxel as V
+    from sdformerflow_tpu_torch.ops.voxel import voxel_grid_signed
+    from sdformerflow_tpu_torch.training.checkpoints import save_checkpoint
+    from sdformerflow_tpu_torch.training.config import (build_configs,
+                                                        chunk_bins,
+                                                        load_config,
+                                                        merge_eval_config)
+    from sdformerflow_tpu_torch.training.torch_interop import (
+        to_reference_state_dict)
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                        "smoke_prep")
+    shutil.rmtree(root, ignore_errors=True)
+    raw, mv_raw = os.path.join(root, "dsec"), os.path.join(root, "mvsec_raw")
+    rng = np.random.default_rng(SEED + 200)
+    h, w = SENSOR
+    bins = config["data"]["num_frames"]
+    out = {"launches": {}}
+
+    t0 = time.perf_counter()
+    tree = write_raw_dsec(torch, raw, DSEC_SEQ, rng)
+    out["dsec_write_s"] = time.perf_counter() - t0
+    log(f"[20] raw DSEC {DSEC_SEQ}: {PREP_WINDOWS} windows of "
+        f"{tree['counts']} events; events.h5 "
+        f"{tree['events_h5_bytes'] / 2 ** 20:.1f} MiB for "
+        f"{tree['events_raw_bytes'] / 2 ** 20:.1f} MiB of events (chunks of "
+        f"{PREP_CHUNK_ROWS}, shuffle + deflate {PREP_DEFLATE}), written in "
+        f"{out['dsec_write_s']:.2f} s")
+
+    # preprocess_dsec --input voxel --make_lists: K3 once a window, counted
+    # from 0 over the run; each launch's inputs kept for the twin
+    kept = []
+
+    def keep(k3):
+        def run(x, y, t, p, **kw):
+            grid = k3(x, y, t, p, **kw)
+            kept.append((x, y, t, p, kw, grid))
+            return grid
+        return run
+
+    argv = ["--root", raw, "--sequence", DSEC_SEQ, "--num_frames", str(bins),
+            "--device", str(dev)]
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    with patched(V, "voxel_grid_signed_k3", keep), \
+            contextlib.redirect_stdout(io.StringIO()):
+        res = preprocess_dsec.main(argv + ["--input", "voxel", "--make_lists",
+                                           "--valid_seqs", DSEC_SEQ])
+    out["voxel_wall_s"] = time.perf_counter() - t0
+    out["launches"]["preprocess_dsec"] = launches = {
+        k: wr.launches for k, wr in kernel_wrappers().items()}
+    check(launches == launches_of(K3=PREP_WINDOWS), f"[20] preprocess_dsec: "
+          f"launches {launches}, expected K3 {PREP_WINDOWS}")
+    windows = res[DSEC_SEQ]
+    check([r["events"] for r in windows] == tree["counts"]
+          and len(kept) == PREP_WINDOWS,
+          f"[20] preprocess_dsec: windows {windows}, {len(kept)} K3 calls, "
+          f"written {tree['counts']}")
+    sfd = os.path.join(raw, "saved_flow_data")
+    names = [f"{DSEC_SEQ}_{i + 1:04d}.npy" for i in range(PREP_WINDOWS)]
+    for name, rec, flow, mask, (x, y, t, p, kw, grid) in zip(
+            names, windows, tree["flows"], tree["masks"], kept):
+        twin = voxel_grid_signed(x, y, t, p, **kw)
+        scale = float(twin.abs().max())
+        rec["rel_err"] = float((grid - twin).abs().max()) / scale
+        saved = np.load(os.path.join(sfd, "event_tensors", f"{bins:02d}bins",
+                                     "left", DSEC_SEQ, name))
+        check(rec["rel_err"] <= PREP_K3_TOL and scale > 0
+              and np.array_equal(saved, grid.cpu().numpy()),
+              f"[20] {name}: K3 {rec['rel_err']:.3e} of the twin's largest "
+              f"{scale} (tolerance {PREP_K3_TOL}), or the .npy differs")
+        xs, ys = x.cpu().numpy(), y.cpu().numpy()
+        check(all(((v > -1) & (v < 0)).any() and (v >= n).any()
+                  for v, n in ((xs, w), (ys, h))),
+              f"[20] {name}: the rectified events neither reach (-1, 0) "
+              f"nor leave the frame")
+        check(np.array_equal(np.load(os.path.join(sfd, "gt_tensors", name)),
+                             flow)
+              and np.array_equal(np.load(os.path.join(
+                  sfd, "mask_tensors", name)), mask),
+              f"[20] {name}: the GT or mask tensor differs from the PNG's")
+        launch, _ = V.prepare_k3(x, y, t, p, mode="signed", num_bins=bins,
+                                 height=h, width=w, t_range=kw["t_range"])
+        rec["k3_ms"] = cuda_time_ms(launch)
+        rec["k3_graph_ms"] = cuda_graph_ms(launch)
+        rec["plain_ms"] = cuda_time_ms(lambda: voxel_grid_signed(
+            x, y, t, p, **kw), iters=5, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes(x, y, t, p, grid),
+                                                 0, F32_FLOP_S)
+        rec["in_frame"] = int(((xs >= 0) & (xs < w) & (ys >= 0)
+                               & (ys < h)).sum())
+        log(f"[20] {name}: {rec['events']} events, read {rec['read_ms']:.2f}"
+            f" ms, voxel {rec['voxel_ms']:.2f} ms (copies + K3), write "
+            f"{rec['write_ms']:.2f} ms; K3 alone {rec['k3_ms']:.4f} ms, graph "
+            f"{rec['k3_graph_ms']:.4f} (twin {rec['plain_ms']:.3f}, bound "
+            f"{rec['bound_ms']:.4f} by {rec['bound_by']}), within "
+            f"{rec['rel_err']:.2e} of the twin's largest")
+    lists = {os.path.basename(p): n for p, n in res["lists"]}
+    check(lists["valid_split_seq.csv"] == PREP_WINDOWS
+          and lists["valid_split_doubleseq.csv"] == PREP_WINDOWS - 1,
+          f"[20] sequence lists {lists}")
+    out["windows"] = windows
+    log(f"[20] preprocess_dsec --input voxel: {out['voxel_wall_s']:.2f} s "
+        f"for the sequence on {card}")
+
+    # chained: eval_dsec on the tree just written (en4, bf16, K1 and K2)
+    model = get_model(config["model"]["name"], *build_configs(config))
+    model.load_state_dict(state_dict)
+    pt = os.path.join(root, "reference_en4.pt")
+    torch.save({"module." + k: v for k, v in
+                to_reference_state_dict(model).items()}, pt)
+    del model
+    out["eval_dsec"] = prep_eval(torch, eval_dsec.main, [
+        "--train_config", CONFIG, "--eval_config", VALID_CONFIG,
+        "--torch_ckpt", pt, "--path", sfd, "--bf16", "--max_batches",
+        str(PREP_EVAL_BATCHES), "--run_dir", os.path.join(root, "eval_dsec")],
+        launches_of(K1=12 * PREP_EVAL_BATCHES, K2=45 * PREP_EVAL_BATCHES),
+        "eval_dsec")
+    out["launches"]["eval_dsec"] = out["eval_dsec"].pop("launches")
+
+    # the host modes once each: no launch
+    for mode, sub in (("cnt", f"{bins:02d}frames"),
+                      ("list", f"{bins:02d}lists")):
+        for wrapper in kernel_wrappers().values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            preprocess_dsec.main(argv + ["--input", mode])
+        out[f"{mode}_wall_s"] = time.perf_counter() - t0
+        out["launches"][f"preprocess_dsec_{mode}"] = launches = {
+            k: wr.launches for k, wr in kernel_wrappers().items()}
+        check(launches == launches_of(), f"[20] --input {mode}: {launches}")
+        for name, rec, (x, _, _, _, _, _) in zip(names, windows, kept):
+            got = np.load(os.path.join(sfd, "event_tensors", sub, "left",
+                                       DSEC_SEQ, name), allow_pickle=True)
+            if mode == "cnt":
+                ok = (got.shape == (bins, 2, h, w)
+                      and int(got.sum()) == rec["in_frame"])
+            else:
+                ev = got[0]
+                ok = (np.array_equal(ev["x"], x.cpu().numpy())
+                      and len(ev["t"]) == rec["events"]
+                      and 0 <= ev["t"].min() and ev["t"].max() < 1)
+            check(ok, f"[20] --input {mode}: {name}")
+        log(f"[20] preprocess_dsec --input {mode}: "
+            f"{out[f'{mode}_wall_s']:.2f} s, no launch")
+
+    # MVSEC: encode_mvsec at dt 1 and dt 4, then eval_mvsec on each
+    t0 = time.perf_counter()
+    mv = write_raw_mvsec(mv_raw, MVSEC_PREP_SEQ, rng)
+    out["mvsec_write_s"] = time.perf_counter() - t0
+    log(f"[20] raw MVSEC {MVSEC_PREP_SEQ}: {MVSEC_PREP_FRAMES} frames of "
+        f"{MVSEC_PREP_EVENTS} events, {mv['gt_frames']} GT frames; "
+        f"{(mv['data_bytes'] + mv['gt_bytes']) / 2 ** 20:.1f} MiB for "
+        f"{mv['raw_bytes'] / 2 ** 20:.1f} MiB (deflate), written in "
+        f"{out['mvsec_write_s']:.2f} s")
+    mvsec = os.path.join(root, "mvsec")
+    for dt in ("1", "4"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            encode_mvsec.main(["--data_dir", mv_raw, "--out_dir", mvsec,
+                               "--sequence", MVSEC_PREP_SEQ, "--dt", dt])
+        out[f"encode_dt{dt}_s"] = time.perf_counter() - t0
+    event_dir = os.path.join(mvsec, MVSEC_PREP_SEQ, "event")
+    files = sorted(os.listdir(event_dir))
+    raw_rows, inds = mv["raw"], mv["inds"]
+    first = 196
+    for i in range(first, first + 12):
+        rows = raw_rows[inds[i - 1]:inds[i]]
+        check(get_events_h5(os.path.join(event_dir, f"{i:06d}.h5")).tobytes()
+              == rows[:, [2, 0, 1, 3]].tobytes(),
+              f"[20] encode_mvsec: frame {i}'s events differ from the raw "
+              f"rows")
+    gts = {dt: sorted(os.listdir(os.path.join(mvsec, MVSEC_PREP_SEQ,
+                                              f"flowgt_dt{dt}")))
+           for dt in ("1", "4")}
+    check(len(files) == MVSEC_PREP_FRAMES - 1
+          and all(f"{i}.npy" in gts[dt] for dt in gts
+                  for i in range(first, first + 3)),
+          f"[20] encode_mvsec: {len(files)} event files, GT "
+          f"{ {k: len(v) for k, v in gts.items()} }")
+    log(f"[20] encode_mvsec: {len(files)} event files, flowgt_dt1 "
+        f"{len(gts['1'])}, flowgt_dt4 {len(gts['4'])} in "
+        f"{out['encode_dt1_s']:.2f} / {out['encode_dt4_s']:.2f} s")
+    # the weights at eval_mvsec's geometry: the merged config (the 10-bin
+    # chunk, the crop)
+    mdr = merge_eval_config(load_config(MDR_CONFIG),
+                            load_config(MVSEC_EVAL_CONFIG))
+    m_cfg, swin, spiking = build_configs(mdr)
+    model = get_model(mdr["model"]["name"], m_cfg,
+                      swin.replace(input_size=tuple(mdr["loader"]["crop"])),
+                      spiking, input_bins=chunk_bins(mdr))
+    randomize_(model, torch.Generator().manual_seed(SEED + 201))
+    ckpt = os.path.join(root, "mdr_ckpt")
+    save_checkpoint(ckpt, model, torch.optim.SGD(model.parameters(), lr=0),
+                    epoch=0, step=0)
+    del model
+    with open(MVSEC_EVAL_CONFIG) as f:
+        ev_raw = yaml.safe_load(f)
+    for dt in ("dt1", "dt4"):
+        ev_raw["data"]["event_interval"] = dt
+        ev_cfg = os.path.join(root, f"eval_{dt}.yaml")
+        with open(ev_cfg, "w") as f:
+            yaml.safe_dump(ev_raw, f)
+        key = f"eval_mvsec_{dt}"
+        out[key] = prep_eval(torch, eval_mvsec.main, [
+            "--train_config", MDR_CONFIG, "--eval_config", ev_cfg, "--ckpt",
+            ckpt, "--path", mvsec, "--sequence", MVSEC_PREP_SEQ,
+            "--max_batches", str(PREP_EVAL_BATCHES), "--run_dir",
+            os.path.join(root, key)],
+            launches_of(K1=10 * PREP_EVAL_BATCHES,
+                        K2=53 * PREP_EVAL_BATCHES), key)
+        out["launches"][key] = out[key].pop("launches")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[20] eval_dsec on the prepared tree {out['eval_dsec']['results']}; "
+        f"eval_mvsec dt1 {out['eval_mvsec_dt1']['results']}, dt4 "
+        f"{out['eval_mvsec_dt4']['results']}; phase 20: "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6228,6 +6658,7 @@ def main() -> int:
         zoo = phase_zoo(torch, dev, card)
         tel = phase_telemetry(torch, dev, config, state_dict, card)
         dp = phase_dp(torch, dev, config, state_dict, card)
+        prep = phase_prep(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6250,7 +6681,9 @@ def main() -> int:
     # and 8 events requests reloaded in a fresh process; the folded serving
     # forward's and the s2d_train step's (phase 16); the SNN zoo's (phase
     # 17): K2 a SEW request and train step, K2b a SEW train step, K1 and K2
-    # an MS_SpikingformerFlowNet forward, K2 a SpikingMultiResUNet forward
+    # an MS_SpikingformerFlowNet forward, K2 a SpikingMultiResUNet forward;
+    # the data preparation's (phase 20): K3 a window of preprocess_dsec,
+    # K1 and K2 the chained eval_dsec and eval_mvsec runs
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -6362,6 +6795,8 @@ def main() -> int:
         entry["launches_dp_serving"] = {
             kind: v["launches"].get(key, 0) for kind, v in
             dp["serving"]["servers"][f"devices=[{dev}] * 2"].items()}
+        entry["launches_data_prep"] = {run: counts[key] for run, counts
+                                       in prep["launches"].items()}
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -6384,6 +6819,7 @@ def main() -> int:
     log(json.dumps({"zoo": zoo}))
     log(json.dumps({"telemetry": tel}))
     log(json.dumps({"dp": dp}))
+    log(json.dumps({"data_prep": prep}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

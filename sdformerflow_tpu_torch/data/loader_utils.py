@@ -19,6 +19,13 @@ host has, this module has its own numpy code:
 Like cv2, :func:`resize_linear` refuses arrays of more than 3 dimensions,
 so ``MDREventFlow`` with ``loader.polarity: false`` and augmentation
 raises, as the JAX package does.
+
+One deviation, for coordinates the JAX form sends out of the grid:
+:func:`events_to_voxel_grid` drops events whose truncated x/y lie outside
+the frame, where JAX's flat ``np.add.at`` puts them into another pixel (a
+negative index, or a column past a row's end) or raises past the grid's
+end. MVSEC's events are always inside; DSEC's rectified ones
+(``preprocess_dsec --host``) are not.
 """
 
 from __future__ import annotations
@@ -98,7 +105,9 @@ def events_to_voxel_grid(event_sequence: EventSequence, num_bins: int,
     """t-bilinear scatter of the reference's
     EventSequenceToVoxelGrid_Pytorch. pol=True -> signed [bins, H, W];
     pol=False -> [bins, 2, H, W]; normalized over the nonzero entries by
-    their mean and unbiased (n - 1) std, as torch's ``.std()``."""
+    their mean and unbiased (n - 1) std, as torch's ``.std()``. Events
+    whose truncated x/y lie outside the frame are dropped (the module's
+    one deviation from JAX)."""
     ev = event_sequence.features.astype(np.float64)
     h, w = event_sequence.image_height, event_sequence.image_width
 
@@ -110,6 +119,7 @@ def events_to_voxel_grid(event_sequence: EventSequence, num_bins: int,
     ys = ev[:, 2].astype(np.int64)
     pols = ev[:, 3].astype(np.float32)
     pols[pols == 0] = -1
+    inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
 
     tis = np.floor(ts)
     tis_long = tis.astype(np.int64)
@@ -123,15 +133,16 @@ def events_to_voxel_grid(event_sequence: EventSequence, num_bins: int,
         vals_left = pols * (1.0 - dts)
         vals_right = pols * dts
         base = xs + ys * w
-        sel = (tis < num_bins) & (tis >= 0)
+        sel = (tis < num_bins) & (tis >= 0) & inside
         scatter(grid, sel, base + tis_long * w * h, vals_left)
-        sel = ((tis + 1) < num_bins) & (tis >= 0)
+        sel = ((tis + 1) < num_bins) & (tis >= 0) & inside
         scatter(grid, sel, base + (tis_long + 1) * w * h, vals_right)
         grid = grid.reshape(num_bins, h, w)
     else:
         grid = np.zeros((num_bins * h * w, 2), np.float32)
         base = xs + ys * w
         for ch, mask_pol in ((0, pols == 1), (1, pols == -1)):
+            mask_pol = mask_pol & inside
             sel = (tis < num_bins) & (tis >= 0) & mask_pol
             scatter(grid[:, ch], sel, base + tis_long * w * h, 1.0 - dts)
             sel = ((tis + 1) < num_bins) & (tis >= 0) & mask_pol
@@ -211,15 +222,19 @@ def prop_flow(x_flow, y_flow, x_indices, y_indices, x_mask, y_mask,
 
 def estimate_corresponding_gt_flow(x_flow_in, y_flow_in, gt_timestamps,
                                    start_time, end_time):
-    """Propagate GT flow across [start_time, end_time] by chained remaps."""
-    x_flow_in = np.asarray(x_flow_in, np.float64)
-    y_flow_in = np.asarray(y_flow_in, np.float64)
+    """Propagate GT flow across [start_time, end_time] by chained remaps.
+    Only the GT frames it reads are taken to float64 (JAX converts the
+    whole [M, H, W] stack on every call: the same values, M times the
+    work)."""
+    def frame(flow_in, i):
+        return np.squeeze(np.asarray(flow_in[i], np.float64))
+
     gt_timestamps = np.asarray(gt_timestamps, np.float64)
 
     gt_iter = np.searchsorted(gt_timestamps, start_time, side="right") - 1
     gt_dt = gt_timestamps[gt_iter + 1] - gt_timestamps[gt_iter]
-    x_flow = np.squeeze(x_flow_in[gt_iter])
-    y_flow = np.squeeze(y_flow_in[gt_iter])
+    x_flow = frame(x_flow_in, gt_iter)
+    y_flow = frame(y_flow_in, gt_iter)
     dt = end_time - start_time
     if gt_dt > dt:
         return x_flow * dt / gt_dt, y_flow * dt / gt_dt
@@ -236,15 +251,15 @@ def estimate_corresponding_gt_flow(x_flow_in, y_flow_in, gt_timestamps,
     prop_flow(x_flow, y_flow, x_indices, y_indices, x_mask, y_mask, scale)
     gt_iter += 1
     while gt_timestamps[gt_iter + 1] < end_time:
-        x_flow = np.squeeze(x_flow_in[gt_iter])
-        y_flow = np.squeeze(y_flow_in[gt_iter])
+        x_flow = frame(x_flow_in, gt_iter)
+        y_flow = frame(y_flow_in, gt_iter)
         prop_flow(x_flow, y_flow, x_indices, y_indices, x_mask, y_mask)
         gt_iter += 1
 
     final_dt = end_time - gt_timestamps[gt_iter]
     final_gt_dt = gt_timestamps[gt_iter + 1] - gt_timestamps[gt_iter]
-    x_flow = np.squeeze(x_flow_in[gt_iter])
-    y_flow = np.squeeze(y_flow_in[gt_iter])
+    x_flow = frame(x_flow_in, gt_iter)
+    y_flow = frame(y_flow_in, gt_iter)
     prop_flow(x_flow, y_flow, x_indices, y_indices, x_mask, y_mask,
               final_dt / final_gt_dt)
 

@@ -57,6 +57,7 @@ from sdformerflow_tpu_torch.training.train_step import make_train_step
 from dsec_tree import BINS, CROP, FRAME, make_tree, write_config
 from test_torch_port_train import EPS, OPT, jax_keeps_float64  # noqa: F401
 from torch_port_harness import randomize_tree, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
 TINY_ANN = os.path.join(CONFIGS, "test_tiny_ann.yaml")

@@ -35,6 +35,7 @@ from sdformerflow_tpu_torch.ops import hopper_attn
 from sdformerflow_tpu_torch.training.from_jax import from_jax
 
 from torch_port_harness import randomize_tree, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 # (M, wh, ww, C, nh)
 GEOMETRIES = [(12, 3, 3, 32, 4), (10, 2, 5, 48, 6), (30, 9, 9, 64, 4)]

@@ -50,6 +50,7 @@ import torch_port_dp_ranks as R
 from test_torch_port_events import _padded_batch
 from test_torch_port_train import _Float64Jnp
 from torch_port_harness import init_pair, randomize_tree
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 WORLD = 2
 STEP_CASES = ("b2", "b4", "events", "acc", "ann")

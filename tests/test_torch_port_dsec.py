@@ -46,6 +46,7 @@ from sdformerflow_tpu_torch.utils.visualization import read_flow_png
 from dsec_tree import (BINS, CROP, FRAME, N_VALID, make_tree,
                        save_reference_checkpoint, tiny_config, write_config)
 from torch_port_harness import randomize_tree
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 # reference layouts from flax layouts (torch_interop's transforms inverted)
 _INV = {"conv": lambda a: a.transpose(3, 2, 0, 1),

@@ -39,6 +39,7 @@ from sdformerflow_tpu_torch.training.s2d_embed import s2d_embed_state_dict
 from sdformerflow_tpu_torch.training.train_step import make_eval_step
 
 from torch_port_harness import flownet_pair, init_pair, randomize_tree, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 TINY = dict(size=(24, 32), depths=(1, 1), heads=(2, 2), window=(2, 3, 3),

@@ -26,6 +26,7 @@ from sdformerflow_tpu_torch.training.train_step import (make_eval_step,
                                                         voxelize_batch)
 
 from torch_port_harness import flownet_pair, init_pair, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -47,6 +47,7 @@ from sdformerflow_tpu_torch.training.from_jax import from_jax
 from sdformerflow_tpu_torch.training.train_step import make_eval_step
 
 from torch_port_harness import randomize_tree
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CROP, SENSOR, BUCKET = (96, 128), (104, 136), 4096

@@ -7,8 +7,9 @@ and the JAX package's ``get_events_h5`` / ``write_events_h5``.
   compact dataset; integer and float32 blocks.
 - The writer read back bitwise by h5py and by JAX's ``get_events_h5``.
 - A ``ValueError`` naming the feature for what the subset leaves out:
-  chunked storage, gzip, big-endian data, superblock version 3, a user
-  block; and for a truncated file or a header continuation loop.
+  the fletcher32 and lzf filters, big-endian data, superblock version 3,
+  a user block; and for a truncated file or a header continuation loop.
+  (Chunked, deflate and shuffle storage is read: test_torch_port_hdf5_raw.)
 """
 
 import struct
@@ -135,13 +136,15 @@ def test_writer_reads_back_through_h5py_and_jax(tmp_path, rows):
 
 
 @pytest.mark.parametrize("kind,what", [
-    ("chunked", "chunked storage"), ("gzip", "filter pipeline"),
+    ("fletcher32", r"filter 3 \(fletcher32\)"),
+    ("lzf", r"filter 32000 \(lzf\)"),
     ("big_endian", "big-endian"), ("latest", "superblock version 3"),
     ("userblock", "user block")])
 def test_reader_refuses_what_is_outside_the_subset(tmp_path, kind, what):
     data = events(np.random.default_rng(5), 40)
     path = str(tmp_path / f"{kind}.h5")
-    kw = {"chunked": dict(chunks=(8, 4)), "gzip": dict(compression="gzip"),
+    kw = {"fletcher32": dict(chunks=(8, 4), fletcher32=True),
+          "lzf": dict(compression="lzf"),
           "big_endian": dict(dtype=">f8")}.get(kind, {})
     file_kw = {"latest": dict(libver="latest"),
                "userblock": dict(userblock_size=512)}.get(kind, {})

@@ -26,6 +26,8 @@ from sdformerflow_tpu_torch.models.registry import get_model, randomize_
 from sdformerflow_tpu_torch.serving import FlowServer
 from sdformerflow_tpu_torch.training.config import build_configs, load_config
 
+from torch_port_harness import one_torch_thread  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TINY = os.path.join(ROOT, "configs", "test_tiny_snn.yaml")
 CROP, SENSOR = (96, 128), (104, 136)

@@ -47,6 +47,7 @@ from sdformerflow_tpu_torch.training import config as t_config
 from sdformerflow_tpu_torch.training.from_jax import from_jax
 
 from torch_port_harness import randomize_tree
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, os.path.join(REPO, "scripts"))

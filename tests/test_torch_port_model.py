@@ -20,6 +20,7 @@ from sdformerflow_tpu_torch.ops.normalization import encode_input
 from sdformerflow_tpu_torch.training.from_jax import from_jax
 
 from torch_port_harness import flownet_pair, init_pair, randomize_tree, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 GEOMETRIES = {
     # the tiny flagship of tests/test_fused_attn_model.py

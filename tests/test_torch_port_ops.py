@@ -27,6 +27,7 @@ from sdformerflow_tpu_torch.ops import hopper_psn, interpolate, neurons
 from sdformerflow_tpu_torch.ops import normalization, pad, windows
 
 from torch_port_harness import to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 
 def _rand(shape, seed, dtype=np.float32):

@@ -22,6 +22,8 @@ from sdformerflow_tpu_torch.training.config import build_configs, load_config
 from sdformerflow_tpu_torch.training.train_step import (center_crop,
                                                         make_eval_step)
 
+from torch_port_harness import one_torch_thread  # noqa: F401
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 
 

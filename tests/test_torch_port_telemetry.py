@@ -40,6 +40,7 @@ from sdformerflow_tpu_torch.ops.normalization import encode_input
 from sdformerflow_tpu_torch.training.train_step import make_eval_step
 
 from torch_port_harness import init_pair, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 H, W, T, C0 = 16, 16, 4, 16
 RATE_TOL = 1e-12

@@ -48,6 +48,7 @@ from sdformerflow_tpu_torch.training.train_step import (make_eval_step,
 from test_torch_port_events import _padded_batch
 from test_torch_port_model import GEOMETRIES
 from torch_port_harness import flownet_pair, init_pair, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 OPT = dict(name="AdamW", lr=1e-3, weight_decay=0.01, scheduler="multistep",
            milestones=[1], steps_per_epoch=2, clip_grad=100.0)

@@ -37,6 +37,7 @@ from sdformerflow_tpu_torch.training import optim
 from sdformerflow_tpu_torch.training.from_jax import from_jax
 
 from torch_port_harness import randomize_tree, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 
 def _rand(shape, seed, scale=1.0):

@@ -52,6 +52,7 @@ from sdformerflow_tpu_torch.training.train_step import (make_eval_step,
 from test_torch_port_model import GEOMETRIES
 from test_torch_port_train import _voxel_batches
 from torch_port_harness import flownet_pair, init_pair, to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 TINY_CONFIG = os.path.join(os.path.dirname(__file__), os.pardir, "configs",
                            "test_tiny_snn.yaml")

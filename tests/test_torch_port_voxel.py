@@ -20,6 +20,7 @@ from sdformerflow_tpu_torch import native
 from sdformerflow_tpu_torch.ops import hopper_voxel, voxel
 
 from torch_port_harness import to_torch
+from torch_port_harness import one_torch_thread  # noqa: F401
 
 KINDS = {
     # name: (port plain, JAX plain, JAX Pallas, port K3 entry, bins kwarg)

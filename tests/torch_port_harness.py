@@ -12,6 +12,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from sdformerflow_tpu.models.common import SpikingConfig as JSpikingConfig
@@ -23,6 +24,19 @@ from sdformerflow_tpu_torch.models.common import SpikingConfig, SwinConfig
 from sdformerflow_tpu_torch.models.registry import get_model
 from sdformerflow_tpu_torch.models.snn_flownet import SpikingformerFlowNet
 from sdformerflow_tpu_torch.training.from_jax import from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module on one torch thread: under the suite's parallel
+    workers torch's default of a thread a core oversubscribes the host, and
+    the trainer entry points then run 30-90x slower (~1 s alone). Module
+    scope, so that it also covers the module's shared fixtures (an autouse
+    fixture is set up first within its scope)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def randomize_tree(variables, seed: int):

@@ -15,23 +15,13 @@ from sdformerflow_tpu.ops.normalization import encode_input as j_encode
 from sdformerflow_tpu_torch.ops.normalization import encode_input
 from sdformerflow_tpu_torch.training.from_jax import from_jax
 
-from torch_port_harness import init_pair, to_torch
+from torch_port_harness import (init_pair,  # noqa: F401
+                                 one_torch_thread, to_torch)
 
 # spikes are exact 0/1 on both sides: a wrong pairing shows as an O(1)
 # difference; 1e-9 of the largest flow absorbs float64 summation order
 FLOW_TOL = 1e-9
 STAT_TOL = 1e-9
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Run a test on one torch thread: under the suite's parallel workers
-    torch's default of a thread a core oversubscribes the host, and the
-    trainer entry points then run 30-90x slower (~1 s alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel(got, want):
