@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, train and DSEC evaluation paths, its
-MDR / MVSEC slice and its raw-data preparation once on one NVIDIA H100, for
-the en4 SNN, the rest of the SNN zoo and the ANN family.
+MDR / MVSEC slice, its raw-data preparation, rematerialization and tensor
+parallelism once on one NVIDIA H100, for the en4 SNN, the rest of the SNN
+zoo and the ANN family.
 
 Run from the root of the repository, with no arguments:
 
@@ -273,7 +274,27 @@ Phases (any failure exits non-zero):
    rows), then ``eval_mvsec --max_batches 2`` at each (K1 10, K2 53 a
    window). The JSON line ``{"data_prep": ...}`` before the kernels line
    holds them, and each kernel entry's ``launches_data_prep`` the launches
-   of each run.
+   of each run;
+21. the rest of the training surface at en4 full width (float32, TF32
+   off, batch 1, 288x384, the seeded weights): the train step plain and
+   under remat ``dots`` and ``all`` from one state - K2 93 (plain) or 186
+   (a recompute at every site) and K2b 93 launches, every neuron call's
+   spikes equal to the plain step's and every recompute's to its
+   forward's (0 differing), the gradients within 1e-5 of the plain step's
+   largest, the memory the forward keeps, the peak, p50 / p90 after 2
+   warm-up steps and device busy; ``train_dsec --synthetic --max_steps 2``
+   with ``optimizer.remat: dots`` on the en4 config; then the step as dp1
+   x tp2 (``parallel/sharding_rules.py``: 41 weights sharded over their
+   output channels) on two gloo ranks on cuda:0 against one process given
+   the TP step's spikes (``forced_spikes``): the loss within 1e-4, the
+   gathered parameters' moves within 1e-3 of the largest, the running
+   statistics within 1e-4, K2 = K2b = 93 a rank, the model ranks' spikes
+   and whole states equal; each rank's parameter and optimizer bytes
+   against one process, peak, step p50 and the collectives of a step by
+   kind with their ms. The JSON line ``{"train_surface": ...}`` before the
+   kernels line holds them, and each kernel entry's
+   ``launches_remat_step`` and ``launches_tp_step`` the launches of those
+   steps.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -5683,9 +5704,9 @@ def checked_psn(P, flips, errs):
     return P.PSNImpl(fwd, bwd)
 
 
-def dp_trainer(torch, dev, config, state_dict, group):
+def dp_trainer(torch, dev, config, state_dict, group, **step_kw):
     """(model, optimizer, train step) of the en4 config in float32 with
-    DP_OPT and ``group``."""
+    DP_OPT and ``group`` (and ``step_kw`` for the step)."""
     from sdformerflow_tpu_torch.models.registry import get_model
     from sdformerflow_tpu_torch.training.config import build_configs
     from sdformerflow_tpu_torch.training.optim import build_optimizer
@@ -5699,7 +5720,7 @@ def dp_trainer(torch, dev, config, state_dict, group):
     step = make_train_step(model, opt,
                            norm_input=config["model"]["norm_input"],
                            generator=torch.Generator(dev).manual_seed(SEED),
-                           group=group)
+                           group=group, **step_kw)
     return model, opt, step
 
 
@@ -5793,10 +5814,10 @@ def dp_rank_work(torch, dev, rank, world, config, state_dict, hw):
         peak_mem_gib=peak)
 
 
-def dp_rank(index, world, out_dir, config_path, hw):
-    """A spawned rank of phase 19 (``torch.multiprocessing``): joins the
-    gloo group through a file in ``out_dir`` on ``cuda:0`` (two ranks on
-    one card: NCCL refuses that) and writes its results there."""
+def run_rank(index, world, out_dir, config_path, hw, work):
+    """A spawned rank (``torch.multiprocessing``): joins the gloo group
+    through a file in ``out_dir`` on ``cuda:0`` (two ranks on one card:
+    NCCL refuses that), runs ``work`` and writes its results there."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5811,8 +5832,8 @@ def dp_rank(index, world, out_dir, config_path, hw):
         dev = multihost.local_device("cuda:0")
         multihost.establish_collectives(multihost.world_group())
         _, state_dict = load_en4(torch)
-        res = dp_rank_work(torch, dev, index, world,
-                           load_config(config_path), state_dict, hw)
+        res = work(torch, dev, index, world, load_config(config_path),
+                   state_dict, hw)
         res["foreign_modules"] = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "sdformerflow_tpu"))
@@ -5826,29 +5847,34 @@ def dp_rank(index, world, out_dir, config_path, hw):
         multihost.leave()
 
 
-def dp_step(torch, card):
-    """The two-rank en4 DDP step against one process (see dp_rank_work)."""
+def dp_rank(index, world, out_dir, config_path, hw):
+    """A spawned rank of phase 19's DP step (:func:`dp_rank_work`)."""
+    run_rank(index, world, out_dir, config_path, hw, dp_rank_work)
+
+
+def spawn_ranks(target, world, name, hw):
+    """Run ``target(index, world, out_dir, CONFIG, hw)`` on ``world``
+    spawned ranks (out_dir ``_build/<name>``), killing them after
+    DP_TIMEOUT_S; a rank that fails fails the run. Returns (seconds with
+    start-up, each rank's results)."""
     import shutil
     import torch.multiprocessing as mp
-    out_dir = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
-                           "smoke_dp")
+    out_dir = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build", name)
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(dp_rank, args=(DP_WORLD, out_dir, CONFIG,
-                                            TRAIN_HW),
-                             nprocs=DP_WORLD, join=False,
-                             start_method="spawn")
+    ctx = mp.start_processes(target, args=(world, out_dir, CONFIG, hw),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.perf_counter() + DP_TIMEOUT_S
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
-                raise SmokeFailure("the DP ranks did not finish in "
+                raise SmokeFailure(f"the {name} ranks did not finish in "
                                    f"{DP_TIMEOUT_S} s")
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
         errs = [open(os.path.join(out_dir, n)).read()
                 for n in sorted(os.listdir(out_dir)) if n.endswith(".err")]
-        raise SmokeFailure(f"a DP rank failed: {errs or e}")
+        raise SmokeFailure(f"a {name} rank failed: {errs or e}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -5856,9 +5882,15 @@ def dp_step(torch, card):
                 p.join(30)
     wall = time.perf_counter() - t0
     ranks = []
-    for r in range(DP_WORLD):
+    for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    return wall, ranks
+
+
+def dp_step(torch, card):
+    """The two-rank en4 DDP step against one process (see dp_rank_work)."""
+    wall, ranks = spawn_ranks(dp_rank, DP_WORLD, "smoke_dp", TRAIN_HW)
     coll = ranks[0]["collectives"]
     log(f"[19] en4 DDP step, float32 (TF32 off), global batch {DP_WORLD} "
         f"at {TRAIN_HW[0]}x{TRAIN_HW[1]}, one row a rank, {DP_WORLD} gloo "
@@ -6593,6 +6625,460 @@ def phase_prep(torch, dev, config, state_dict, card):
     return out
 
 
+# ----------------------------------------------------------- phase 21
+# the rest of the training surface: the en4 step rematerialized (K2
+# recomputed, K2b) and tensor parallelism over a model axis (dp1 x tp2,
+# two gloo ranks on the one card)
+
+REMAT_POLICIES = (None, "dots", "all")
+REMAT_WARMUP_STEPS = 2
+REMAT_TIMED_STEPS = 6
+# remat against the plain step from one state, with the same spikes: each
+# gradient's largest |d| over the largest |gradient| (phase 13's bound)
+REMAT_GRAD_TOL = ANN_REMAT_TOL
+REMAT_TRAIN_STEPS = 2     # train_dsec --max_steps with optimizer.remat
+TP_WORLD = 2              # dp1 x tp2
+TP_TIMED_STEPS = 3
+
+
+def neuron_spikes(model, plain=None):
+    """Forward hooks on every neuron of ``model``: each neuron's first call
+    keeps its spikes (and, with ``plain``, the plain step's first-call
+    spikes by neuron name, counts those that differ); a later call (the
+    recompute of a checkpointed block) counts the spikes that differ from
+    the first call's. Returns (record, handles): ``record["calls"]`` each
+    neuron's calls, ``"recompute"`` and ``"vs_plain"`` [differing,
+    compared]."""
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    rec = dict(first={}, calls={}, recompute=[0, 0], vs_plain=[0, 0])
+
+    def hook(name):
+        def fn(mod, args, out):
+            s = out.detach() != 0
+            k = rec["calls"].get(name, 0)
+            rec["calls"][name] = k + 1
+            if k == 0:
+                rec["first"][name] = s
+                if plain is not None:
+                    rec["vs_plain"][0] += int((s != plain[name]).sum())
+                    rec["vs_plain"][1] += s.numel()
+            else:
+                rec["recompute"][0] += int((s != rec["first"][name]).sum())
+                rec["recompute"][1] += s.numel()
+        return fn
+    return rec, [m.register_forward_hook(hook(n))
+                 for n, m in model.named_modules()
+                 if isinstance(m, SpikingNeuron)]
+
+
+def forward_kept_gib(torch, step, opt, batch):
+    """One step of ``step``, returning what its forward keeps for the
+    backward: the memory allocated when the loss is taken, less what was
+    allocated before the step (gradients cleared)."""
+    from sdformerflow_tpu_torch.training import train_step as TS
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    seen = []
+    loss = TS.flow_loss_supervised
+
+    def probe(*args, **kw):
+        seen.append(torch.cuda.memory_allocated())
+        return loss(*args, **kw)
+    with patched(TS, "flow_loss_supervised", lambda f: probe):
+        step(batch)["loss"].item()
+    return (seen[0] - base) / 2 ** 30
+
+
+def remat_check(torch, dev, config, state_dict, remat, batch, plain):
+    """The first en4 f32 step under ``remat`` (None: the plain step) from
+    the seeded state: its K2 / K2b launches, every neuron call's spikes
+    against the plain step's (``plain``) and, in a recompute, against its
+    forward's, and the gradients (on the host). Returns (record,
+    gradients, the first calls' spikes)."""
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    model, _, step = dp_trainer(torch, dev, config, state_dict, None,
+                                remat=remat)
+    rec, handles = neuron_spikes(model, plain)
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    loss = step(batch)["loss"].item()
+    launches = {"K2": P.fused_affine_psn.launches,
+                "K2b": P.fused_psn_backward.launches}
+    for h in handles:
+        h.remove()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    first = rec.pop("first")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(loss=loss, launches=launches,
+                neuron_calls=sorted(set(rec["calls"].values())),
+                neurons=len(rec["calls"]), recompute_flips=rec["recompute"],
+                flips_vs_plain=rec["vs_plain"]), grads, first
+
+
+def largest_allocation(torch, run, frames=True):
+    """The largest single allocation of ``run()`` (GiB) and, with
+    ``frames``, what made it: the first frame naming a cuDNN call, else the
+    first Python frame. (Recording frames through a rematerialized
+    backward fails inside CPython on the card's host: a checkpoint's
+    recompute records none.)"""
+    kw = dict(stacks="all") if frames else dict(context=None)
+    torch.cuda.memory._record_memory_history(max_entries=200000, **kw)
+    try:
+        run()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    big = max((e for e in trace if e["action"] == "alloc"),
+              key=lambda e: e["size"])
+    frames = big.get("frames", [])
+    if not frames:
+        return dict(gib=big["size"] / 2 ** 30, by="not recorded")
+    by = next((f["name"].split("(")[0] for f in frames
+               if "cudnn" in f["name"]), None) or next(
+        (f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+         for f in frames if f["filename"].endswith(".py")), "unknown")
+    return dict(gib=big["size"] / 2 ** 30, by=by)
+
+
+def remat_measure(torch, dev, config, state_dict, remat, batch):
+    """The en4 f32 step under ``remat`` with nothing else of this phase on
+    the card: what its forward keeps, p50 / p90 after the warm-up, the
+    peak memory, device busy and its largest allocation."""
+    model, opt, step = dp_trainer(torch, dev, config, state_dict, None,
+                                  remat=remat)
+    kept = forward_kept_gib(torch, step, opt, batch)
+    for _ in range(REMAT_WARMUP_STEPS - 1):
+        step(batch)["loss"].item()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(REMAT_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)["loss"].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    busy = device_ms_per_call(torch, lambda: step(batch), 1,
+                              f"smoke_remat_{remat}_trace")
+    big = largest_allocation(torch, lambda: step(batch),
+                             frames=remat is None)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return dict(forward_kept_gib=kept, step_ms=ms,
+                p50_ms=float(np.percentile(ms, 50)),
+                p90_ms=float(np.percentile(ms, 90)), peak_mem_gib=peak,
+                device_ms=busy, largest_alloc=big)
+
+
+def remat_trainer(torch, dev, card):
+    """``train_dsec --synthetic --max_steps 2`` on the en4 config written
+    anew with ``optimizer.remat: dots``: finite losses, K2 twice and K2b
+    once at every site a step."""
+    import copy
+    import shutil
+    import tempfile
+    import yaml
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training import train_loop as TL
+    from sdformerflow_tpu_torch.training.config import load_config
+    config = copy.deepcopy(load_config(CONFIG))
+    config["optimizer"]["remat"] = "dots"
+    tmp = tempfile.mkdtemp(prefix="smoke_remat_")
+    try:
+        path = os.path.join(tmp, "en4_remat_dots.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(config, f)
+        steps, wall, model, opt = dsec_train(torch, [
+            "--config", path, "--synthetic", "--max_steps",
+            str(REMAT_TRAIN_STEPS), "--run_dir", os.path.join(tmp, "run"),
+            "--device", str(dev)], TL, P)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [s[0] for s in steps]
+    check(len(steps) == REMAT_TRAIN_STEPS and np.isfinite(losses).all()
+          and int(opt.count) == REMAT_TRAIN_STEPS,
+          f"[21] train_dsec with remat dots: losses {losses}, "
+          f"{int(opt.count)} updates")
+    launches = [{"K2": s[1], "K2b": s[2]} for s in steps]
+    check(all(c == {"K2": 2 * DP_PSN_SITES, "K2b": DP_PSN_SITES}
+              for c in launches), f"[21] train_dsec with remat dots: "
+          f"launches a step {launches}")
+    log(f"[21] train_dsec --synthetic --max_steps {REMAT_TRAIN_STEPS} on the "
+        f"en4 config with optimizer.remat: dots: losses "
+        + ", ".join(f"{v:.5g}" for v in losses)
+        + f", launches a step {launches[0]}, {wall:.1f} s with validation, "
+        f"on {card}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(losses=losses, launches_per_step=launches[0], seconds=wall)
+
+
+def phase_remat(torch, dev, config, state_dict, card):
+    """Remat ``dots`` and ``all`` beside the plain en4 f32 step at batch 1
+    (288x384, TF32 off): the same spikes and gradients, no spike of a
+    recompute differing from its forward's, K2 twice and K2b once at every
+    PSN site, the memory the forward keeps, the step's peak, p50 / p90 and
+    device busy; then the trainer with ``optimizer.remat: dots``."""
+    batch = train_batch(torch, dev, TRAIN_HW, SEED + 200)
+    runs, grads, plain = {}, {}, None
+    for remat in REMAT_POLICIES:
+        key = str(remat)
+        runs[key], grads[key], first = remat_check(
+            torch, dev, config, state_dict, remat, batch, plain)
+        if remat is None:
+            plain = first
+        del first
+    del plain
+    torch.cuda.empty_cache()
+    for remat in REMAT_POLICIES:
+        runs[str(remat)].update(remat_measure(torch, dev, config,
+                                              state_dict, remat, batch))
+    top = max(float(g.abs().max()) for g in grads["None"].values())
+    for remat in REMAT_POLICIES[1:]:
+        r = runs[remat]
+        check(set(grads[remat]) == set(grads["None"]),
+              f"[21] remat {remat}: other parameters have gradients")
+        r["grad_err_of_largest"] = max(
+            float((grads[remat][n] - g).abs().max())
+            for n, g in grads["None"].items()) / top
+    del grads
+    want = {"None": (DP_PSN_SITES, [1]), "dots": (2 * DP_PSN_SITES, [2]),
+            "all": (2 * DP_PSN_SITES, [2])}
+    for key, r in runs.items():
+        k2, calls = want[key]
+        check(r["launches"] == {"K2": k2, "K2b": DP_PSN_SITES}
+              and r["neuron_calls"] == calls and r["neurons"] == DP_PSN_SITES,
+              f"[21] remat {key}: launches {r['launches']}, neuron calls "
+              f"{r['neuron_calls']} of {r['neurons']} neurons")
+        if key == "None":
+            continue
+        f, n = r["recompute_flips"]
+        check(n > 0 and f == 0, f"[21] remat {key}: {f} of {n} spikes of "
+              "a recompute differ from its forward's")
+        f, n = r["flips_vs_plain"]
+        check(n > 0 and f == 0, f"[21] remat {key}: {f} of {n} spikes "
+              "differ from the plain step's")
+        check(r["grad_err_of_largest"] <= REMAT_GRAD_TOL,
+              f"[21] remat {key}: gradients {r['grad_err_of_largest']:.3g} "
+              f"of the largest from the plain step's (bound "
+              f"{REMAT_GRAD_TOL})")
+    log(f"[21] en4 f32 train step (TF32 off), batch 1 at {TRAIN_HW[0]}x"
+        f"{TRAIN_HW[1]}, plain and under remat, from one state, on {card}:")
+    for key, r in runs.items():
+        extra = "" if key == "None" else (
+            f"; a recompute's spikes differ from its forward's at "
+            f"{r['recompute_flips'][0]} of {r['recompute_flips'][1]}, the "
+            f"forward's from the plain step's at {r['flips_vs_plain'][0]} "
+            f"of {r['flips_vs_plain'][1]}; gradients "
+            f"{r['grad_err_of_largest']:.3g} of the largest from the plain "
+            f"step's")
+        log(f"[21]   remat {key}: the forward keeps "
+            f"{r['forward_kept_gib']:.3f} GiB, peak {r['peak_mem_gib']:.3f}"
+            f" GiB; step p50 {r['p50_ms']:.1f} ms, p90 {r['p90_ms']:.1f} ("
+            + ", ".join(f"{v:.1f}" for v in r["step_ms"]) + "), device "
+            "busy " + ("not measured" if r["device_ms"] is None
+                       else f"{r['device_ms']:.1f} ms")
+            + f"; K2 {r['launches']['K2']}, K2b {r['launches']['K2b']} "
+            f"launches; the largest allocation of a step "
+            f"{r['largest_alloc']['gib']:.3f} GiB by "
+            f"{r['largest_alloc']['by']}" + extra)
+    trainer = remat_trainer(torch, dev, card)
+    return dict(steps=runs, trainer=trainer)
+
+
+def tp_trainer(torch, dev, config, state_dict, mesh):
+    """(model, optimizer, train step) of the en4 config in float32 with
+    DP_OPT, sharded over ``mesh``'s model group (None: one process)."""
+    from sdformerflow_tpu_torch.parallel import sharding_rules
+    from sdformerflow_tpu_torch.training.train_step import make_train_step
+    model, opt, _ = dp_trainer(torch, dev, config, state_dict, None)
+    if mesh is not None:
+        sharding_rules.shard_model(model, opt, mesh)
+    step = make_train_step(model, opt,
+                           norm_input=config["model"]["norm_input"],
+                           generator=torch.Generator(dev).manual_seed(SEED))
+    return model, opt, step
+
+
+def tp_rank_work(torch, dev, rank, world, config, state_dict, hw):
+    """One rank's share of phase 21's dp1 x tp2 step (the whole batch on
+    every model rank), checked on rank 0 against one process on the same
+    card given the TP step's spikes."""
+    import torch.distributed as dist
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.parallel import multihost, sharding_rules
+    mesh = multihost.make_multihost_mesh(world)
+    check(mesh.n_model == world and mesh.data is None
+          and mesh.model_rank == rank, f"rank {rank}: mesh {mesh}")
+    batch = train_batch(torch, dev, hw, SEED + 210)
+    start = {k: v.to(dev) for k, v in state_dict.items()}
+    model, opt, step = tp_trainer(torch, dev, config, state_dict, mesh)
+    layout = sharding_rules.tp_layout(model)
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    whole = sum(v.numel() * v.element_size() for k, v in start.items()
+                if not k.endswith(("running_mean", "running_var",
+                                   "num_batches_tracked")))
+
+    # the checked step: launches, spikes recorded, collectives counted
+    spikes = []
+    handles = spike_record(model, spikes)
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    with CollectiveLog(torch) as coll:
+        tp_loss = step(batch)["loss"].item()
+    launches = {"K2": P.fused_affine_psn.launches,
+                "K2b": P.fused_psn_backward.launches}
+    for h in handles:
+        h.remove()
+    opt_bytes = sum(getattr(opt, n).numel() * getattr(opt, n).element_size()
+                    for n in opt.state_names)
+    after_tp = {k: v.detach().clone() for k, v in
+                sharding_rules.whole_state(model)[0].items()}
+    # the model ranks fired the same spikes and hold the same whole state
+    sig = torch.tensor([float(s.sum()) for s in spikes]
+                       + [float(v.double().sum()) for v in after_tp.values()
+                          if v.is_floating_point()], dtype=torch.float64)
+    sigs = [torch.empty_like(sig) for _ in range(world)]
+    dist.all_gather(sigs, sig, group=mesh.model)
+    ranks_agree = all(torch.equal(s, sigs[0]) for s in sigs)
+
+    # the timed steps and the peak memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(TP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)["loss"].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del model, opt, step
+    torch.cuda.empty_cache()
+    res = dict(rank=rank, loss=tp_loss, launches=launches,
+               sharded=len(layout.dims), param_bytes=held,
+               param_bytes_one_process=whole, optimizer_bytes=opt_bytes,
+               collectives=coll.summary(), ranks_agree=ranks_agree,
+               step_ms=ms, p50_ms=float(np.percentile(ms, 50)),
+               peak_mem_gib=peak, spike_calls=len(spikes))
+    if rank != 0:
+        return res
+
+    # one process on the same batch from the same state, its neurons given
+    # the TP step's spikes
+    model, opt, step = tp_trainer(torch, dev, config, state_dict, None)
+    site = []
+    handles = forced_spikes(torch, model, [spikes], site)
+    P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+    one_loss = step(batch)["loss"].item()
+    one_launches = {"K2": P.fused_affine_psn.launches,
+                    "K2b": P.fused_psn_backward.launches}
+    for h in handles:
+        h.remove()
+    one_opt_bytes = sum(getattr(opt, n).numel()
+                        * getattr(opt, n).element_size()
+                        for n in opt.state_names)
+    after_one = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt, step, spikes
+    check(len(site) == res["spike_calls"] > 0, f"{res['spike_calls']} neuron"
+          f" calls in the TP step against {len(site)} in one process")
+
+    def moved(after):
+        return {k: after[k].double() - start[k].double() for k in start
+                if after[k].is_floating_point()}
+    d_tp, d_one = moved(after_tp), moved(after_one)
+    params = [k for k in d_one if not k.endswith(("running_mean",
+                                                  "running_var"))]
+    top = max(d_one[k].abs().max().item() for k in params)
+    res.update(
+        one_process_loss=one_loss, one_process_launches=one_launches,
+        optimizer_bytes_one_process=one_opt_bytes,
+        loss_rel=abs(tp_loss - one_loss) / max(abs(one_loss), 1e-300),
+        spikes_flipped=sum(s[0] for s in site),
+        spikes=sum(s[1] for s in site),
+        param_delta_rel=max((d_tp[k] - d_one[k]).abs().max().item()
+                            for k in params) / max(top, 1e-300),
+        running_stats_rel=max(rel_err(after_tp[k], after_one[k])[1]
+                              for k in start
+                              if k.endswith(("running_mean",
+                                             "running_var"))))
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank(index, world, out_dir, config_path, hw):
+    """A spawned rank of phase 21 (``torch.multiprocessing``), as
+    :func:`dp_rank`."""
+    run_rank(index, world, out_dir, config_path, hw, tp_rank_work)
+
+
+def tp_step(torch, card):
+    """The dp1 x tp2 en4 step against one process (see tp_rank_work)."""
+    wall, ranks = spawn_ranks(tp_rank, TP_WORLD, "smoke_tp", TRAIN_HW)
+    r0 = ranks[0]
+    log(f"[21] en4 f32 train step (TF32 off), batch 1 at {TRAIN_HW[0]}x"
+        f"{TRAIN_HW[1]}, dp1 x tp{TP_WORLD} ({r0['sharded']} weights sharded"
+        f" over output channels), {TP_WORLD} gloo ranks on cuda:0 "
+        f"({wall:.1f} s with start-up), against one process on the same "
+        f"card given the TP step's spikes, on {card}: loss "
+        f"{r0['loss']:.7g} (one process {r0['one_process_loss']:.7g}, rel "
+        f"{r0['loss_rel']:.2e}); the one process's own spikes differ at "
+        f"{r0['spikes_flipped']} of {r0['spikes']}; parameter moves "
+        f"{r0['param_delta_rel']:.2e} of the largest away, running "
+        f"statistics {r0['running_stats_rel']:.2e}")
+    for r in ranks:
+        log(f"[21]   rank {r['rank']}: K2 {r['launches']['K2']}, K2b "
+            f"{r['launches']['K2b']} launches; parameters "
+            f"{r['param_bytes'] / 2 ** 20:.1f} MiB (one process "
+            f"{r['param_bytes_one_process'] / 2 ** 20:.1f}), optimizer "
+            f"state {r['optimizer_bytes'] / 2 ** 20:.1f} MiB"
+            + (f" (one process "
+               f"{r['optimizer_bytes_one_process'] / 2 ** 20:.1f})"
+               if "optimizer_bytes_one_process" in r else "")
+            + f"; peak "
+            f"{r['peak_mem_gib']:.2f} GiB; step p50 {r['p50_ms']:.1f} ms ("
+            + ", ".join(f"{v:.1f}" for v in r["step_ms"])
+            + "); collectives of the checked step (host clock, a sync "
+            "either side): " + ", ".join(
+                f"{k} {v['count']} ({v['ms']:.1f} ms, "
+                f"{v['bytes'] / 2 ** 20:.1f} MiB)"
+                for k, v in sorted(r["collectives"].items())))
+    want = {"K2": DP_PSN_SITES, "K2b": DP_PSN_SITES}
+    for r in ranks:
+        rk = r["rank"]
+        check(r["foreign_modules"] == [], f"rank {rk} imported "
+              f"{r['foreign_modules']}")
+        check(r["launches"] == want, f"[21] TP rank {rk}: launches "
+              f"{r['launches']}, expected {want}")
+        check(r["ranks_agree"], f"[21] TP rank {rk}: the model ranks' "
+              "spikes or whole states differ")
+        check(r["param_bytes"] < r["param_bytes_one_process"],
+              f"[21] TP rank {rk} holds every parameter whole")
+    check(r0["one_process_launches"] == want, f"[21] one process: "
+          f"{r0['one_process_launches']}")
+    check(r0["spikes_flipped"] <= MAX_FLIP_SHARE * r0["spikes"],
+          f"[21] {r0['spikes_flipped']} of {r0['spikes']} spikes of one "
+          "process differ from the TP step's")
+    check(r0["loss_rel"] <= DP_LOSS_TOL, f"[21] the TP loss {r0['loss']} "
+          f"against one process's {r0['one_process_loss']}")
+    check(r0["param_delta_rel"] <= DP_DELTA_TOL, f"[21] the parameters "
+          f"moved {r0['param_delta_rel']:.3g} of the largest move away from"
+          " one process's")
+    check(r0["running_stats_rel"] <= DP_STATS_TOL, f"[21] the running "
+          f"statistics {r0['running_stats_rel']:.3g} away from one "
+          "process's")
+    return dict(ranks=ranks, wall_s=wall, world=TP_WORLD)
+
+
+def phase_train_surface(torch, dev, config, state_dict, card):
+    t_phase = time.perf_counter()
+    remat = phase_remat(torch, dev, config, state_dict, card)
+    torch.cuda.empty_cache()
+    tp = tp_step(torch, card)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[21] phase 21: {phase_s:.1f} s")
+    return dict(remat=remat, tp=tp, phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -6659,6 +7145,7 @@ def main() -> int:
         tel = phase_telemetry(torch, dev, config, state_dict, card)
         dp = phase_dp(torch, dev, config, state_dict, card)
         prep = phase_prep(torch, dev, config, state_dict, card)
+        surface = phase_train_surface(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6683,7 +7170,8 @@ def main() -> int:
     # 17): K2 a SEW request and train step, K2b a SEW train step, K1 and K2
     # an MS_SpikingformerFlowNet forward, K2 a SpikingMultiResUNet forward;
     # the data preparation's (phase 20): K3 a window of preprocess_dsec,
-    # K1 and K2 the chained eval_dsec and eval_mvsec runs
+    # K1 and K2 the chained eval_dsec and eval_mvsec runs; the en4 step's
+    # plain and under remat dots / all, and a dp1 x tp2 rank's (phase 21)
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -6797,6 +7285,11 @@ def main() -> int:
             dp["serving"]["servers"][f"devices=[{dev}] * 2"].items()}
         entry["launches_data_prep"] = {run: counts[key] for run, counts
                                        in prep["launches"].items()}
+        entry["launches_remat_step"] = {
+            policy: r["launches"].get(key, 0)
+            for policy, r in surface["remat"]["steps"].items()}
+        entry["launches_tp_step"] = \
+            surface["tp"]["ranks"][0]["launches"].get(key, 0)
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -6820,6 +7313,7 @@ def main() -> int:
     log(json.dumps({"telemetry": tel}))
     log(json.dumps({"dp": dp}))
     log(json.dumps({"data_prep": prep}))
+    log(json.dumps({"train_surface": surface}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

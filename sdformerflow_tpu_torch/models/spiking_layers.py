@@ -45,6 +45,7 @@ import re
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops import neurons
 from ..ops.hopper_attn import bn_eval_affine
@@ -90,7 +91,10 @@ def membrane_stats(v: torch.Tensor) -> torch.Tensor:
 
 class _Site:
     """One neuron's share of a collection: its scope (the flax path,
-    "/"-joined) and the collection's records."""
+    "/"-joined) and the collection's records. A ``muted`` site records
+    nothing (a rematerialized block's recompute, ``training/remat.py``)."""
+
+    muted = False
 
     def __init__(self, scope: str, sites: dict):
         self.scope, self.sites = scope, sites
@@ -99,6 +103,8 @@ class _Site:
     def record(self, kind: str, value: torch.Tensor):
         """Add one call's ``value`` under ``<scope>/<kind>/[i]``, i the
         site's calls of that kind before it (flax's sow tuple)."""
+        if self.muted:
+            return
         i = self.calls.get(kind, 0)
         self.calls[kind] = i + 1
         self.sites[f"{self.scope}/{kind}/[{i}]"] = value
@@ -446,19 +452,31 @@ def _channels_last(conv, x):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on channels-last ``[..., H, W, C]``."""
+    """``nn.Conv2d`` on channels-last ``[..., H, W, C]``; :meth:`conv` is
+    the same conv with another weight and bias (a tensor-parallel shard,
+    ``parallel/sharding_rules.py``)."""
+
+    def conv(self, x, weight, bias):
+        return _channels_last(lambda z: self._conv_forward(z, weight, bias),
+                              x)
 
     def forward(self, x):
-        return _channels_last(super().forward, x)
+        return self.conv(x, self.weight, self.bias)
 
 
 class TorchConvTranspose(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` on channels-last ``[..., H, W, C]``: the
     geometry the JAX module reproduces (zero-insert, pad
-    ``(k-1-p, k-1-p+output_padding)``, flipped kernel)."""
+    ``(k-1-p, k-1-p+output_padding)``, flipped kernel); :meth:`conv` as
+    :class:`Conv2d`'s."""
+
+    def conv(self, x, weight, bias):
+        return _channels_last(lambda z: F.conv_transpose2d(
+            z, weight, bias, self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation), x)
 
     def forward(self, x):
-        return _channels_last(super().forward, x)
+        return self.conv(x, self.weight, self.bias)
 
 
 def conv2d(in_channels, out_channels, kernel_size, stride=1, padding=None,

@@ -21,7 +21,10 @@ pairs cut into T groups of channels). The ten ``PATCH_EMBEDS`` names of
 Each embed has ``patches_resolution`` (its output's H', W', from the conv
 geometry) and ``out_steps`` (its output's time axis: T, or the number of
 temporal blocks of :class:`MSSpikingPatchEmbedConvLocal`), which the swin
-stages are built for.
+stages are built for. The embeds whose full-resolution head is followed by
+a stride-2 conv compute that part in :meth:`band` (its children ``head``
+and ``conv``), which ``training/remat.py`` checkpoints as one region so
+that no full-resolution activation is kept for the backward.
 """
 
 from __future__ import annotations
@@ -128,10 +131,13 @@ class SpikingPatchEmbedConvSfn(nn.Module):
         self.patches_resolution = _out_size(img_size,
                                             [(2, 2), patch_size[-2:]])
 
-    def forward(self, x):
+    def band(self, x):
+        """The full-resolution band: regroup -> head -> conv /2."""
         x = sfn_regroup(x[:, :self.in_chans], self.num_steps)
-        x = self.conv(self.head(x))
-        return self.proj(self.residual_encoding(x))
+        return self.conv(self.head(x))
+
+    def forward(self, x):
+        return self.proj(self.residual_encoding(self.band(x)))
 
 
 class SpikingPatchEmbedSfn(nn.Module):
@@ -181,10 +187,13 @@ class SpikingPatchEmbedConv(nn.Module):
         self.patches_resolution = _out_size(img_size,
                                             [(2, 2), patch_size[-2:]])
 
-    def forward(self, x):
+    def band(self, x):
+        """The full-resolution band: regroup -> head -> conv /2."""
         x = chunk_regroup(x[:, :self.in_chans], self.num_steps)
-        x = self.conv(self.head(x))
-        return self.proj(self.residual_encoding(x))
+        return self.conv(self.head(x))
+
+    def forward(self, x):
+        return self.proj(self.residual_encoding(self.band(x)))
 
 
 class MSSpikingPatchEmbedConvLocal(nn.Module):
@@ -256,14 +265,16 @@ class _S2DConv(Conv2d):
             raise ValueError(f"unknown s2d conv kind {kind!r}")
         super().__init__(in_channels, out_channels, 3, padding=1, bias=bias)
         self.kind = kind
+        # the output's channels: (block, c) over 4 blocks in block space
+        self.out_blocks = 4 if kind == "s1" else 1
 
-    def forward(self, x):
+    def conv(self, x, weight, bias):
         if self.kind == "s1":
-            w = s2d_kernel_s1(self.weight)
-            b = None if self.bias is None else tile4(self.bias)
+            w = s2d_kernel_s1(weight)
+            b = None if bias is None else tile4(bias)
             return _channels_last(lambda z: F.conv2d(z, w, b, padding=1), x)
-        w = s2d_kernel_s2(self.weight)
-        return _channels_last(lambda z: F.conv2d(z, w, self.bias),
+        w = s2d_kernel_s2(weight)
+        return _channels_last(lambda z: F.conv2d(z, w, bias),
                               F.pad(x, (0, 0, 1, 0, 1, 0)))
 
 
@@ -398,12 +409,16 @@ class MSPEDSpikingPatchEmbedConvSfn(nn.Module):
             conv_output_size(n, 3, s, 1)
             for n, s in zip((h, w), patch_size[-2:]))
 
-    def forward(self, x):
+    def band(self, x):
+        """The full-resolution band (in block space with ``s2d_embed`` or
+        ``s2d_train``): regroup -> head -> MS conv /2."""
         x = sfn_regroup(x[:, :self.in_chans], self.num_steps)
         if self.s2d and self.training:
             raise ValueError("cfg.s2d_embed is inference-only (train-mode"
                              " BN statistics would be per block-channel)")
         if self.s2d or self.s2d_train:
             x = space_to_depth(x)
-        x = self.conv(self.head(x))
-        return self.proj(self.residual_encoding(x))
+        return self.conv(self.head(x))
+
+    def forward(self, x):
+        return self.proj(self.residual_encoding(self.band(x)))

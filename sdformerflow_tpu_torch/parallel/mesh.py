@@ -11,8 +11,10 @@ run on ``--xla_force_host_platform_device_count`` virtual CPU devices):
 such entries share one replica, and their rows run as one batch there.
 Training over several cards runs one process per card instead
 (``parallel/multihost.py``); ``serving.FlowServer(devices=...)`` takes a
-list. JAX's ``model`` axis (tensor parallelism, ``sharding_rules.py``) is
-not ported.
+list. :func:`make_grid` returns JAX's 2-D grid, ``n_data`` rows of
+``n_model`` devices; training over it runs one process a device,
+whose groups ``parallel/multihost.py:make_multihost_mesh`` makes, and
+``parallel/sharding_rules.py`` shards the model over the ``model`` axis.
 
 ``host_prefetch`` and ``prefetch_to_device`` feed the trainer's batches to
 its card.
@@ -32,14 +34,37 @@ import torch
 def make_mesh(n_data=None, devices=None) -> list:
     """The devices of a data axis: the first ``n_data`` of ``devices``
     (default: every visible card, else the CPU), as ``torch.device``s."""
-    if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())] or ["cpu"]
-    devices = [_indexed(torch.device(d)) for d in devices]
+    devices = _devices(devices)
     n_data = len(devices) if n_data is None else int(n_data)
     if not 1 <= n_data <= len(devices):
         raise ValueError(f"n_data={n_data} of {len(devices)} device(s)")
     return devices[:n_data]
+
+
+def make_grid(n_data=None, n_model=1, devices=None) -> list:
+    """The (data, model) grid of ``devices`` (as :func:`make_mesh`), laid
+    out as JAX's ``devs.reshape(n_data, n_model)``: ``n_data`` lists of
+    ``n_model`` devices, row d holding devices ``d * n_model`` to
+    ``(d + 1) * n_model - 1`` (``n_data`` defaults to as many rows as the
+    devices fill)."""
+    devices = _devices(devices)
+    n_model = int(n_model)
+    if n_model < 1:
+        raise ValueError(f"n_model={n_model}")
+    n_data = len(devices) // n_model if n_data is None else int(n_data)
+    if not 1 <= n_data * n_model <= len(devices):
+        raise ValueError(f"n_data={n_data} x n_model={n_model} of "
+                         f"{len(devices)} device(s)")
+    return [devices[d * n_model:(d + 1) * n_model] for d in range(n_data)]
+
+
+def _devices(devices) -> list:
+    """``devices`` (default: every visible card, else the CPU) as indexed
+    ``torch.device``s."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())] or ["cpu"]
+    return [_indexed(torch.device(d)) for d in devices]
 
 
 def _indexed(device: torch.device) -> torch.device:

@@ -33,16 +33,21 @@ same global step:
 
 A ``group`` argument is a ``torch.distributed`` process group or None. No
 group, or a group of one, leaves every function of the port exactly as it
-is in one process. JAX's ``make_multihost_mesh`` and ``global_batch`` have
-no tensor counterpart: each rank keeps its local rows on its own card and
-nothing assembles a global array.
+is in one process. :func:`make_multihost_mesh` is JAX's
+``make_multihost_mesh(n_model)``: the world's ranks as a (data, model) grid,
+rank = d * n_model + m, with this rank's data group (the ranks of its model
+index: the batch's rows are split over it) and model group (the ranks of its
+data slice: tensor parallelism, ``parallel/sharding_rules.py``). Every
+``group`` above is a data group. JAX's ``global_batch`` has no tensor
+counterpart: each rank keeps its local rows on its own card and nothing
+assembles a global array.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -114,6 +119,46 @@ def active(group) -> bool:
 def rank_of(group) -> int:
     """This process's rank in ``group`` (0 with no active group)."""
     return dist.get_rank(group) if active(group) else 0
+
+
+class Mesh(NamedTuple):
+    """This rank's place in the (data, model) grid of the world's ranks
+    (:func:`make_multihost_mesh`): its data group and model group (None
+    where that axis has one rank), the axes' sizes and its indices."""
+    data: object
+    model: object
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+
+
+def make_multihost_mesh(n_model: int = 1) -> Mesh:
+    """The world's ranks as a grid of ``process_count() // n_model`` data
+    slices of ``n_model`` model ranks, laid out as JAX's
+    ``devs.reshape(n_data, n_model)``: rank = d * n_model + m. Every rank
+    must call it (it creates the groups, in one order on every rank). With
+    ``n_model == 1`` the data group is :func:`world_group`'s."""
+    world, rank = process_count(), process_index()
+    n_model = int(n_model)
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"n_model={n_model} does not divide the "
+                         f"{world} rank(s)")
+    n_data = world // n_model
+    d, m = divmod(rank, n_model)
+    if n_model == 1:
+        return Mesh(world_group(), None, n_data, 1, d, 0)
+    data = model = None
+    for i in range(n_data):
+        g = dist.new_group([i * n_model + j for j in range(n_model)])
+        if i == d:
+            model = g
+    if n_data > 1:
+        for j in range(n_model):
+            g = dist.new_group([i * n_model + j for i in range(n_data)])
+            if j == m:
+                data = g
+    return Mesh(data, model, n_data, n_model, d, m)
 
 
 def local_device(device=None) -> torch.device:

@@ -6,7 +6,12 @@ statistics), the optimizer's state, the step and the epoch.
 Under data parallelism (a ``group``) every rank holds the same state: rank
 0 writes and every rank waits for it at a barrier; every rank reads the
 file, then takes rank 0's tensors (JAX's multi-process orbax save and
-restore are collective in the same way).
+restore are collective in the same way). A model sharded over a model
+group (``parallel/sharding_rules.py``) is saved whole, under the
+one-process names (its model ranks gather each slice, the first of them
+writes, every rank of the world waits), and a whole checkpoint is loaded
+into either layout: a tensor-parallel checkpoint loads in one process and
+the other way round.
 """
 
 from __future__ import annotations
@@ -16,8 +21,10 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..parallel.multihost import barrier, broadcast_state, rank_of
+from ..parallel.sharding_rules import load_whole_state, tp_layout, whole_state
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 
@@ -38,13 +45,22 @@ def save_checkpoint(ckpt_dir: str, model, optimizer, epoch: int, step: int,
                     group=None):
     """Write the checkpoint of ``epoch`` (atomically) and delete all but
     the ``max_to_keep`` newest; with a ``group``, rank 0 writes and every
-    rank returns once it has."""
-    if rank_of(group) != 0:
-        barrier(group)
+    rank returns once it has. A sharded model is gathered whole first (a
+    collective over its model group)."""
+    layout = tp_layout(model)
+    model_sd, opt_sd = whole_state(model, optimizer)
+
+    def wait():
+        if layout is None:
+            barrier(group)
+        else:
+            dist.barrier()
+
+    if rank_of(group) != 0 or rank_of(layout and layout.group) != 0:
+        wait()
         return
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"model": model.state_dict(),
-               "optimizer": optimizer.state_dict(),
+    payload = {"model": model_sd, "optimizer": opt_sd,
                "step": int(step), "epoch": int(epoch),
                "metrics": dict(metrics or {})}
     path = _path(ckpt_dir, epoch)
@@ -52,7 +68,7 @@ def save_checkpoint(ckpt_dir: str, model, optimizer, epoch: int, step: int,
     os.replace(path + ".tmp", path)
     for old in _epochs(ckpt_dir)[:-max_to_keep]:
         os.remove(_path(ckpt_dir, old))
-    barrier(group)
+    wait()
 
 
 def latest_epoch(ckpt_dir: str) -> Optional[int]:
@@ -65,7 +81,7 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer=None,
     """Load a checkpoint (the newest by default) into ``model`` and, unless
     it is None (evaluation, serving), ``optimizer``; returns (step,
     restored epoch). With a ``group`` every rank loads it, then takes rank
-    0's tensors."""
+    0's tensors; a sharded model takes its slices of the whole tensors."""
     if epoch is None:
         epoch = latest_epoch(ckpt_dir)
     if epoch is None:
@@ -73,8 +89,7 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer=None,
     dev = next(model.parameters()).device
     payload = torch.load(_path(ckpt_dir, epoch), map_location=dev,
                          weights_only=True)
-    model.load_state_dict(payload["model"])
-    if optimizer is not None:
-        optimizer.load_state_dict(payload["optimizer"])
+    load_whole_state(model, payload["model"], optimizer,
+                     None if optimizer is None else payload["optimizer"])
     broadcast_state(model, optimizer, group)
     return payload["step"], payload["epoch"]

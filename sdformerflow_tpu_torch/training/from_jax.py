@@ -54,24 +54,57 @@ _KERNELS = ((TorchConvTranspose, lambda a: a.transpose(2, 3, 0, 1)),
             (nn.Linear, lambda a: a.T))
 
 
-def _convert(module: nn.Module, coll: str, leaf: str, arr: np.ndarray):
-    """(torch name, array) for one flax leaf of ``module``, or None."""
+def _layout(module: nn.Module):
+    """The flax -> torch layout of ``module``'s kernel, or None."""
+    for cls, layout in _KERNELS:
+        if isinstance(module, cls):
+            return layout
+    return None
+
+
+def trailing_dim(module: nn.Module, name: str, ndim: int) -> int:
+    """The dim of ``module``'s parameter ``name`` (``ndim`` dims) that holds
+    its flax leaf's trailing axis (a kernel's output channels): the leaf's
+    layout run over a probe of distinct extents. A parameter with no
+    layout keeps the flax axes (its last dim)."""
+    layout = _layout(module) if name == "weight" else None
+    if layout is None:
+        return ndim - 1
+    probe = tuple(range(2, 2 + ndim))
+    return layout(np.empty(probe, np.bool_)).shape.index(probe[-1])
+
+
+def _convert(module: nn.Module, coll: str, leaf: str):
+    """(torch name, layout or None) for one flax leaf of ``module``, or
+    None."""
     if isinstance(module, TorchBatchNorm):
         name = _BN_NAMES.get((coll, leaf))
-        return None if name is None else (name, arr)
+        return None if name is None else (name, None)
     if coll != "params":
         return None
     if isinstance(module, (nn.LayerNorm, InstanceNorm, GroupNorm)):
         name = {"scale": "weight", "bias": "bias"}.get(leaf)
-        return None if name is None else (name, arr)
+        return None if name is None else (name, None)
     if leaf == "kernel":
-        for cls, layout in _KERNELS:
-            if isinstance(module, cls):
-                return "weight", layout(arr)
-        return None
+        layout = _layout(module)
+        return None if layout is None else ("weight", layout)
     # conv/linear/PSN bias, PSN weight, PLIF w, GLIF fields, positional
     # encoding, bias tables, logit_scale, BN_notrack scale: same name
-    return leaf, arr
+    return leaf, None
+
+
+def port_key(modules: Mapping, coll: str, path) -> tuple:
+    """(the port's state_dict key, its layout or None) of the flax leaf at
+    ``path`` of collection ``coll``; ``modules`` is the port model's
+    ``dict(named_modules())``. The key is None for a leaf with no
+    counterpart."""
+    *mod_path, leaf = path
+    mod_name = ".".join(mod_path)
+    module = modules.get(mod_name)
+    converted = None if module is None else _convert(module, coll, leaf)
+    if converted is None:
+        return None, None
+    return ".".join(filter(None, (mod_name, converted[0]))), converted[1]
 
 
 def from_jax(variables: Mapping, model: nn.Module) -> dict:
@@ -84,17 +117,12 @@ def from_jax(variables: Mapping, model: nn.Module) -> dict:
         if coll not in ("params", "batch_stats"):
             raise KeyError(f"unexpected variable collection {coll!r}")
         for path, arr in _leaves(tree):
-            *mod_path, leaf = path
-            mod_name = ".".join(mod_path)
-            module = modules.get(mod_name)
-            converted = None if module is None else _convert(module, coll,
-                                                             leaf, arr)
-            key = converted and ".".join(filter(None, (mod_name,
-                                                       converted[0])))
+            key, layout = port_key(modules, coll, path)
             if key not in targets:
                 raise KeyError(f"JAX variable {coll}/{'/'.join(path)} has no "
                                "counterpart in the port")
-            value = np.array(converted[1], order="C")
+            value = np.array(arr if layout is None else layout(arr),
+                             order="C")
             if tuple(value.shape) != tuple(targets[key].shape):
                 raise ValueError(f"{key}: shape {value.shape} vs "
                                  f"{tuple(targets[key].shape)}")

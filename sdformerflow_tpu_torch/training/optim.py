@@ -100,10 +100,23 @@ class FlatOptimizer:
     neuron ``attn_sn``, has none and is never updated nor decayed, as in
     the reference and the JAX decay mask; JAX's zero gradients leave Adam
     and SGD at rest there too); every later step must give the same set.
+
+    Under tensor parallelism (``parallel/sharding_rules.py:shard_model``
+    sets ``sharded``, the names of the parameters this rank holds a slice
+    of, and ``model_group``, the group they are sharded over) the flat
+    state covers this rank's slices, and the global norm is the replicated
+    leaves' squares, counted once, plus the sharded slices' squares summed
+    over the model group. The replicated leaves' gradients are equal on
+    every model rank up to the order of a nondeterministic kernel's atomic
+    adds (on the card, the nearest upsample's backward), so they are taken
+    from the model group's first rank (one broadcast a step): the replicas
+    never drift apart.
     """
 
     kind = ""
     state_names: tuple = ()
+    sharded: frozenset = frozenset()
+    model_group = None
 
     def __init__(self, named_parameters, *, schedule,
                  max_norm: Optional[float] = None, num_acc: int = 1):
@@ -116,6 +129,7 @@ class FlatOptimizer:
         self.mini_step = self.gradient_step = 0
         self.names: Optional[list] = None   # the trained set, at step 1
         self.acc = None
+        self._sharded_mask = self._replicated = None
         for name in self.state_names:
             setattr(self, name, None)
 
@@ -135,6 +149,12 @@ class FlatOptimizer:
                              "a gradient changed since the first step")
         params = [self.named[n] for n in self.names]
         numel = sum(p.numel() for p in params)
+        if self.sharded and self._sharded_mask is None:
+            self._sharded_mask = torch.cat([
+                torch.full((p.numel(),), n in self.sharded,
+                           device=p.device) for n, p in zip(self.names,
+                                                            params)])
+            self._replicated = (~self._sharded_mask).nonzero().squeeze(1)
         for name in self.state_names + (("acc",) if self.num_acc > 1
                                         else ()):
             if getattr(self, name) is None:
@@ -152,12 +172,20 @@ class FlatOptimizer:
         gradient of its share of the global loss (``losses.py``): one
         all-reduce (SUM) of the flat gradient, before the norm, the clip,
         the skip and the accumulation, makes it the global step's on every
-        rank, so that every rank takes the same decisions and update."""
+        rank, so that every rank takes the same decisions and update. Under
+        tensor parallelism the replicated leaves take the model group's
+        first rank's gradient and the norm sums the sharded slices' squares
+        over that group."""
         params = self._trained()
         g = torch.cat([p.grad.reshape(-1) for p in params])
         if active(group):
             dist.all_reduce(g, group=group)
-        g_norm = torch.linalg.vector_norm(g)
+        if self._replicated is not None and active(self.model_group):
+            rep = g.index_select(0, self._replicated)
+            mg = self.model_group
+            dist.broadcast(rep, src=dist.get_global_rank(mg, 0), group=mg)
+            g.index_copy_(0, self._replicated, rep)
+        g_norm = self._norm(g)
         if self.num_acc == 1:
             self._update(params, g, g_norm)
         else:
@@ -165,12 +193,21 @@ class FlatOptimizer:
             self.mini_step += 1
             if self.mini_step < self.num_acc:
                 return g_norm
-            self._update(params, self.acc,
-                         torch.linalg.vector_norm(self.acc))
+            self._update(params, self.acc, self._norm(self.acc))
             self.acc.mul_(0)
             self.mini_step = 0
         self.gradient_step += 1
         return g_norm
+
+    def _norm(self, g):
+        """The global L2 norm of the flat vector ``g`` over every rank's
+        slices (module docstring); the plain norm without sharding."""
+        if self._sharded_mask is None or not active(self.model_group):
+            return torch.linalg.vector_norm(g)
+        sq = g * g
+        mine = torch.where(self._sharded_mask, sq, 0).sum()
+        dist.all_reduce(mine, group=self.model_group)
+        return torch.sqrt(torch.where(self._sharded_mask, 0, sq).sum() + mine)
 
     def _update(self, params, g, g_norm):
         """Clip, skip and the inner update from the gradient ``g``."""
@@ -213,6 +250,7 @@ class FlatOptimizer:
         def to_dev(t):
             return None if t is None else t.to(dev)
 
+        self._sharded_mask = self._replicated = None
         self.count = state["count"].to(dev)
         self.notfinite_count = state["notfinite_count"].to(dev)
         self.names = state["names"]

@@ -24,9 +24,12 @@ of a process group, a mirror of
   epoch.
 
 ``optimizer.remat`` ("dots", "dots_no_batch", "all") rematerializes the
-train step's forward in the backward (``train_step.rematerialized``). JAX's
-guard against remat at per-device batch >= 8 is not copied: it records an
-out-of-memory crash of a TPU worker, not a fact about a GPU.
+train step's forward in the backward (``training/remat.py``), for the SNN
+zoo and the ANN family alike. JAX's guard against remat at per-device batch
+>= 8 (ANN-only) is not copied: it records an out-of-memory crash of a TPU
+worker, not a fact about a GPU. Tensor parallelism has no config key, as in
+JAX (its trainer builds a mesh of one model rank): it is an API
+(``parallel/sharding_rules.py``).
 
 Data parallelism (JAX ``train_loop.py:115-130,190-216,296-305``): in a
 process group of R ranks (``torchrun``, ``parallel/multihost.py``)

@@ -121,7 +121,8 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     ``remat`` ("dots", "dots_no_batch", "all") runs the forward under
     :class:`training.remat.Remat`: the backward recomputes each block but
     for what the policy keeps, with the forward's drop-path masks, so the
-    gradients are those of the plain step (the ANN family).
+    gradients are those of the plain step (every model of the zoo; K2 is
+    recomputed at each PSN site under every policy).
 
     ``group`` (a ``torch.distributed`` process group, or None) makes the
     step one rank's share of the global batch's step, as JAX's step over a
@@ -131,6 +132,11 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     this rank's share of the global loss, the optimizer all-reduces the
     flat gradient, and the returned loss is the global one. A group of one
     is the one-process step.
+
+    A model that ``parallel/sharding_rules.py:shard_model`` sharded
+    (tensor parallelism; ``group`` is then the data group) gathers its
+    layers' channels over its model group, and the optimizer's norm sums
+    the sharded slices over it (``shard_model`` gives both the group).
     """
     params = dict(model.named_parameters())
     param_dtype = next(iter(params.values())).dtype

@@ -549,9 +549,14 @@ def test_remat_refuses_what_it_cannot_run():
                         input_size=(24, 32), depths=(1, 1, 1, 1),
                         num_heads=(2, 2, 2, 2), window_size=(2, 3, 3)),
                     SpikingConfig(num_steps=4, neuron_type="psn"))
-    with pytest.raises(NotImplementedError, match="ANN family"):
-        make_train_step(snn, optim.build_optimizer(snn.named_parameters(),
-                                                   **OPT), remat="dots")
+    # every SNN of the zoo rematerializes now; a model with no block to
+    # checkpoint is refused
+    make_train_step(snn, optim.build_optimizer(snn.named_parameters(),
+                                               **OPT), remat="dots")
+    bare = torch.nn.Linear(2, 2)
+    with pytest.raises(ValueError, match="no block"):
+        make_train_step(bare, optim.build_optimizer(bare.named_parameters(),
+                                                    **OPT), remat="dots")
 
 
 # ------------------------------------------------------------ entry points

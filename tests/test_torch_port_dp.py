@@ -12,13 +12,15 @@ first update moves each parameter by its gradient; losses and grad norms to
 step, as ``tests/test_torch_port_train.py``. The cases: 3-step
 trajectories at global batch 2 (one row a rank) and 4 (with the clip at 1
 active), an events step (K3's plain twin on each rank's rows), ``num_acc``
-2, and the tiny STTFlowNet with BN under remat "dots" (collectives in the
-recompute) against JAX's plain step. Drop path and the "Drop" augmentation
-draw the port's own random numbers, so with them on the two ranks are held
-against one process of the port at the same seed. A group of one is bit
-for bit no group. The shard arithmetic is JAX's index for index. The ranks
-also run the batch-statistics eval step, the trainer entry point and a
-SIGTERM delivered to one rank.
+2, the tiny STTFlowNet with BN under remat "dots" (collectives in the
+recompute) against JAX's plain step, and the SNN's first global-batch-2
+step under remat "dots" (the batch statistics' all-reduces and the swin
+blocks' row gathers re-issued in the recompute) against JAX's plain step.
+Drop path and the "Drop" augmentation draw the port's own random numbers,
+so with them on the two ranks are held against one process of the port at
+the same seed. A group of one is bit for bit no group. The shard arithmetic
+is JAX's index for index. The ranks also run the batch-statistics eval
+step, the trainer entry point and a SIGTERM delivered to one rank.
 """
 
 import functools
@@ -53,7 +55,9 @@ from torch_port_harness import init_pair, randomize_tree
 from torch_port_harness import one_torch_thread  # noqa: F401
 
 WORLD = 2
-STEP_CASES = ("b2", "b4", "events", "acc", "ann")
+STEP_CASES = ("b2", "b4", "events", "acc", "ann", "snn_remat")
+# XLA's CPU backend at LLVM level 0: a quicker compile of the same program
+QUICK_XLA = dict(xla_backend_optimization_level=0)
 
 
 def _voxel_batches(n, batch, seed, size=(16, 16), bins=4):
@@ -99,15 +103,19 @@ def _pairs():
 
 
 def _jax_steps(jmodel, tmodel, variables, batches, opt, num_acc=1,
-               **step_kw):
+               compiler_options=None, **step_kw):
     """JAX's single-device train step over the global batches: per step
-    (loss, grad norm, state_dict in the port's names)."""
+    (loss, grad norm, state_dict in the port's names). ``compiler_options``
+    go to XLA's compile of the step."""
     as_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
     state = j_train_step.TrainState.create(
         apply_fn=jmodel.apply, params=as_jax(variables["params"]),
         batch_stats=as_jax(variables["batch_stats"]),
         tx=j_optim.build_optimizer(**opt, num_acc=num_acc))
     step = j_train_step.make_train_step(donate=False, **step_kw)
+    if compiler_options is not None:
+        step = step.lower(state, as_jax(batches[0]), jax.random.PRNGKey(0)
+                          ).compile(compiler_options=compiler_options)
     out = []
     for b in batches:
         state, m = step(state, as_jax(b), jax.random.PRNGKey(0))
@@ -161,6 +169,8 @@ def dp(tmp_path_factory):
             # one compile a case, in parallel (XLA compiles off the GIL)
             with ThreadPoolExecutor(len(cases)) as pool:
                 want = dict(zip(cases, pool.map(compiled, cases)))
+        # JAX's remat step is its plain step (tests/test_train_step.py)
+        want["snn_remat"] = want["b2"][:1]
         one_process = R.draws_run(job, None, 0, 1)
         other_seed = R.draws_run(job, None, 0, 1, seed=8)
         one_eval = R.batch_stats_eval(job, None, 0, 1)

@@ -47,12 +47,14 @@ TINY_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 RANK_TIMEOUT_S = 150
 
 
-def snn_model(drop_path_rate=0.0):
+def snn_model(drop_path_rate=0.0, **cfg):
+    """The tiny MS spikingformer; ``cfg`` overrides SpikingConfig fields
+    (``s2d_train``)."""
     from sdformerflow_tpu_torch.models.common import SpikingConfig, SwinConfig
     from sdformerflow_tpu_torch.models.snn_flownet import SpikingformerFlowNet
     return SpikingformerFlowNet(
         SwinConfig(**SNN_SWIN, drop_path_rate=drop_path_rate),
-        SpikingConfig(**SNN_CFG), **SNN_NET)
+        SpikingConfig(**SNN_CFG, **cfg), **SNN_NET)
 
 
 def stt_model():
@@ -199,6 +201,8 @@ def train_cases(rank, world, workdir):
     res["draws"] = draws_run(job, group, rank, world)
     res["ann"] = run_steps(_fresh(job, "stt"), job["ann"], polarity=False,
                            norm_input=True, remat="dots", **kw)
+    res["snn_remat"] = run_steps(_fresh(job, "snn"), job["b2"][:1],
+                                 remat="dots", **kw)
     # a group of one is no group: each rank on its own rows, bit for bit
     ones = [dist.new_group([r]) for r in range(world)]
     alone = run_steps(_fresh(job, "snn"), job["b2"][:1], group=ones[rank],
@@ -221,6 +225,75 @@ def four_ranks(rank, world, workdir):
                           opt=dict(SGD, clip_grad=1.0), group=group,
                           rank=rank, world=world)
     res["draws"] = draws_run(job, group, rank, world)
+    return res
+
+
+TP_MIN_SIZE = 1 << 8       # JAX's tests/test_multichip_equivalence.py
+TP_S2D_MIN_SIZE = 1 << 6   # shards the tiny s2d_train head's [8, 2, 3, 3]
+TP_LAYOUTS = ((2, 2), (1, 4))   # (n_data, n_model) over four ranks
+
+
+def tp_run(job, mesh, batches, *, ckpt_in=None, ckpt_out=None,
+           drop_path_rate=0.0, seed=None, min_size=TP_MIN_SIZE, **cfg):
+    """The port's step over ``batches`` (global batches; this rank takes
+    its data slice's rows) on the SNN sharded over ``mesh``, from a
+    checkpoint ``ckpt_in`` (a whole one) or ``job``'s state; per step
+    (loss, grad norm, whole state_dict after it); the last state saved to
+    ``ckpt_out``. Also the shapes this rank holds and its flat optimizer
+    state's length. With ``seed`` drop path draws from a generator seeded
+    so on every rank (the same on the model ranks of a data slice);
+    ``cfg`` overrides SpikingConfig fields."""
+    from sdformerflow_tpu_torch.parallel import sharding_rules as S
+    from sdformerflow_tpu_torch.training import checkpoints, optim
+    from sdformerflow_tpu_torch.training.train_step import make_train_step
+    model = _fresh(job, "snn", drop_path_rate=drop_path_rate, **cfg)
+    opt = optim.build_optimizer(model.named_parameters(), **TP_OPT)
+    S.shard_model(model, opt, mesh, min_size=min_size)
+    if ckpt_in is not None:
+        checkpoints.restore_checkpoint(ckpt_in, model, opt, group=mesh.data)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    step = make_train_step(model, opt, group=mesh.data, generator=gen)
+    out = []
+    for b in batches:
+        m = step(rows(b, mesh.data_rank, mesh.n_data))
+        whole, _ = S.whole_state(model)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: v.clone() for k, v in whole.items()}))
+    if ckpt_out is not None:
+        checkpoints.save_checkpoint(ckpt_out, model, opt, 0, len(batches),
+                                    group=mesh.data)
+    local = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return out, local, int(opt.trace.numel())
+
+
+# SGD at lr 1 with the clip at 1 active: the norm over the model group
+TP_OPT = dict(SGD, clip_grad=1.0)
+
+
+def tp_cases(rank, world, workdir):
+    """tests/test_torch_port_tp.py: the SNN's steps at global batch 2 as
+    dp2 x tp2 and dp1 x tp4 over the four ranks; a tensor-parallel
+    checkpoint written, a one-process one resumed, drop path 0.3, and the
+    s2d_train embed with its block-space head sharded."""
+    from sdformerflow_tpu_torch.parallel import multihost
+    job = torch.load(os.path.join(workdir, "job.pt"), weights_only=False)
+    res = {"rank": rank, "world": multihost.process_count()}
+    for n_data, n_model in TP_LAYOUTS:
+        mesh = multihost.make_multihost_mesh(n_model)
+        assert (mesh.n_data, mesh.n_model) == (n_data, n_model)
+        key = f"dp{n_data}_tp{n_model}"
+        res[key] = tp_run(job, mesh, job["tp"], ckpt_out=os.path.join(
+            workdir, key) if key == "dp2_tp2" else None)
+        res[key + "_mesh"] = (mesh.data_rank, mesh.model_rank)
+        if key == "dp2_tp2":
+            res["resumed"] = tp_run(job, mesh, job["tp"][1:],
+                                    ckpt_in=os.path.join(workdir, "one"))
+            res["draws"] = tp_run(job, mesh, job["tp"], drop_path_rate=0.3,
+                                  seed=7)
+            # the s2d_train head sharded too: its block-space channels
+            res["s2d_train"] = tp_run(job, mesh, job["tp"][:1],
+                                      min_size=TP_S2D_MIN_SIZE,
+                                      s2d_train=True)
     return res
 
 
