@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, train and DSEC evaluation paths, its
 MDR / MVSEC slice, its raw-data preparation, rematerialization and tensor
-parallelism once on one NVIDIA H100, for the en4 SNN, the rest of the SNN
-zoo and the ANN family.
+parallelism, the last layers and the exported programs of every family
+once on one NVIDIA H100, for the en4 SNN, the rest of the SNN zoo and the
+ANN family.
 
 Run from the root of the repository, with no arguments:
 
@@ -294,7 +295,31 @@ Phases (any failure exits non-zero):
    kind with their ms. The JSON line ``{"train_surface": ...}`` before the
    kernels line holds them, and each kernel entry's
    ``launches_remat_step`` and ``launches_tp_step`` the launches of those
-   steps.
+   steps;
+22. the modules that close the port, at full width: the MS Sep-conv
+   layers at en4's shapes (the encoder block, which holds ``MSSepConv``,
+   at the first Swin stage's input [10, 1, 72, 96, 96] to 192 channels;
+   the transpose decoder at the input of en4's first decoder and the
+   prediction layer at the input of its last prediction head, both read
+   from a forward), each in bf16 eval (K2 once at every PSN site, each
+   launch against its twin, the sites' shapes bit for bit on dyadic
+   inputs, the plain twins' forward equal where no spike flipped) and in
+   float32 train (K2 and K2b once at every site, each K2b launch against
+   the float64 twin); ``SpikingBNWindowAttention3D(spike_input=True,
+   spike_output=False)`` on the SEW model's first-stage windows the same
+   way (K2 4 launches: proj_sn_in, q, k, v); ``SpikingPatchEmbedLocal(
+   spiking_proj=False)`` at en4's width in bf16; ``export_model --verify``
+   of ``SpikingformerFlowNet`` (and its ``events_1048576`` program),
+   ``MS_SpikingformerFlowNet``, ``SpikingMultiResUNet`` (phase 17's
+   configs) and ``STTFlowNet`` (the DSEC STT config, 20-bin chunks) in
+   bf16 from seeded random weights: each reloaded program equal to the
+   live step bit for bit, its K1 / K2 / K3 op nodes equal to the live
+   step's launches and its own, device busy (the median of 5 interleaved
+   readings a route) within 2% of the live step's; export and load
+   seconds and MB. The JSON line ``{"close":
+   ...}`` before the kernels line holds them, and each kernel entry's
+   ``launches_close`` and ``launches_zoo_export`` the launches of those
+   runs.
 
 The line before the card's name is a JSON object with each kernel's
 launches, error, times and bound; then the card's name and power limit;
@@ -305,6 +330,7 @@ It needs one CUDA card and the CUDA toolkit; it imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -7079,6 +7105,493 @@ def phase_train_surface(torch, dev, config, state_dict, card):
     return dict(remat=remat, tp=tp, phase_s=phase_s)
 
 
+# ----------------------------------------------------------- phase 22
+# the closing modules: the MS Sep-conv layers at en4's shapes, the SEW
+# attention's SDSA switches, the Local embed's plain-conv projection, and
+# export_model --verify of every SNN / ANN family at full width
+
+SEP_IN = (10, 1, 72, 96, 96)  # en4's first Swin stage input at 288x384
+SEP_OUT = 192
+ZOO_EXPORTS = ("SpikingformerFlowNet", "MS_SpikingformerFlowNet",
+               "SpikingMultiResUNet", "STTFlowNet")
+EXPORT_BUSY_TOL = 0.02       # a reloaded program's device busy vs live
+EXPORT_BUSY_ROUNDS = 5
+EXPORT_OPS = {"K1": "sdformerflow_torch.qk_attn_interior.default",
+              "K2": "sdformerflow_torch.fused_affine_psn.default",
+              "K3": "sdformerflow_torch.voxelize_batch.default"}
+
+
+def en4_layer_inputs(torch, dev, config, state_dict):
+    """The input shapes of en4's first decoder and of its last prediction
+    head (bf16 forward at the config's crop), and their out channels."""
+    from sdformerflow_tpu_torch.models.registry import get_model
+    from sdformerflow_tpu_torch.training.config import build_configs
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    model = get_model(config["model"]["name"], *build_configs(config))
+    model.load_state_dict(state_dict)
+    unet = model.sttmultires_unet
+    dec, pred = unet.decoder0, getattr(unet, f"pred{unet.num_encoders - 1}")
+    shapes = {}
+
+    def grab(name):
+        def hook(mod, args):
+            shapes[name] = tuple(args[0].shape)
+        return hook
+    handles = [dec.register_forward_pre_hook(grab("decoder")),
+               pred.register_forward_pre_hook(grab("pred"))]
+    step = make_eval_step(model.to(dev), compute_dtype=torch.bfloat16)
+    hw = tuple(config["loader"]["crop"])
+    with torch.inference_mode():
+        step(torch.from_numpy(voxel_requests(1, 10, hw, SEED + 220)[0])[None]
+             .to(dev))
+    for h in handles:
+        h.remove()
+    out = {"decoder": (shapes["decoder"], dec.deconv.out_channels),
+           "pred": (shapes["pred"], pred.conv.out_channels)}
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def psn_sites_dyadic(torch, dev, P, sites, gen):
+    """K2 against its twin bit for bit on dyadic inputs at each captured
+    site's shape, dtype and affine (x on a 1/4 grid, W on 1/8, b, scale
+    and shift on 1/4): the largest |d| (must be 0)."""
+    err = 0.0
+    for shape, dtype, affine in sorted(set(sites), key=str):
+        T, C = shape[0], shape[-1]
+        x = dyadic(shape, 0.25, -2.0, 2.0, gen, dev, dtype)
+        w = dyadic((T, T), 0.125, -1.0, 1.0, gen, dev, torch.float32)
+        b = dyadic((T, 1), 0.25, -1.0, 1.0, gen, dev, torch.float32)
+        kw = dict(scale=dyadic((C,), 0.25, 0.25, 2.0, gen, dev,
+                               torch.float32),
+                  shift=dyadic((C,), 0.25, -1.0, 1.0, gen, dev,
+                               torch.float32)) if affine else {}
+        got = P.fused_affine_psn(x, w, b, **kw)
+        d = (got.float() - P.psn_spike(x, w, b, **kw).float()).abs().max()
+        err = max(err, d.item())
+        check(0.0 < got.float().mean().item() < 1.0,
+              f"[22] dyadic K2 at {list(shape)}: degenerate output")
+    return err
+
+
+def layer_eval(torch, dev, label, layer, x):
+    """``layer`` in bf16 eval (a cast copy, inference mode): K2 once at
+    every PSN site, each launch against its twin (flipped share), the
+    sites' shapes again on dyadic inputs bit for bit, then the plain
+    twins' forward (equal where no spike flipped)."""
+    import copy
+    from sdformerflow_tpu_torch.models.spiking_layers import SpikingNeuron
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    from sdformerflow_tpu_torch.training.train_step import cast_params
+    m = cast_params(copy.deepcopy(layer).to(dev).eval(), torch.bfloat16)
+    xb = x.to(dev, torch.bfloat16)
+    flips, sites, calls = {"K1": [0, 0], "K2": [0, 0]}, [], [0]
+    psn, _ = checked_kernels(flips)
+
+    def on_psn(mod, args, kwargs):
+        sites.append((tuple(args[0].shape), args[0].dtype,
+                      kwargs.get("affine") is not None))
+    handles = [n.register_forward_pre_hook(on_psn, with_kwargs=True)
+               for n in m.modules()
+               if isinstance(n, SpikingNeuron) and n.kind == "psn"]
+    with torch.inference_mode():
+        with psn_calls(m, calls):
+            P.fused_affine_psn.launches = 0
+            with site_functions(psn):
+                y = first_out(m(xb))
+            torch.cuda.synchronize()
+            k2 = P.fused_affine_psn.launches
+        for h in handles:
+            h.remove()
+        with site_functions(plain_twins()[0]):
+            plain = first_out(m(xb))
+    check(k2 == calls[0] == len(sites) > 0, f"[22] {label} bf16: K2 {k2} "
+          f"launches for {calls[0]} PSN-site calls")
+    n_flip, n = flips["K2"]
+    check(n_flip <= MAX_FLIP_SHARE * n, f"[22] {label} bf16: K2 flipped "
+          f"{n_flip} of {n} spikes")
+    check(bool(torch.isfinite(y.float()).all()), f"[22] {label}: non-finite")
+    same = torch.equal(y, plain)
+    if n_flip == 0:
+        check(same, f"[22] {label}: no spike flipped, yet the kernel path "
+              "differs from the plain twins'")
+    with torch.inference_mode():
+        dy = psn_sites_dyadic(torch, dev, P, sites,
+                              torch.Generator(dev).manual_seed(SEED + 221))
+    check(dy == 0.0, f"[22] {label}: K2 {dy} from its twin on dyadic inputs")
+    return dict(k2=k2, sites=sorted({str(list(s)) + (" affine" if a else "")
+                                     for s, _, a in sites}),
+                flipped=n_flip, spikes=n, same_as_plain=same,
+                dyadic_max_abs_err=dy, out_shape=list(y.shape)), y
+
+
+def first_out(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def layer_train(torch, dev, label, layer, x):
+    """``layer`` in float32 train mode (TF32 off): one forward and backward
+    of a random projection of its output, K2 and K2b once at every PSN
+    site, each K2 launch against its twin (flipped share) and each K2b
+    launch against the float64 twin (``captured_ok``); then the same step
+    through the plain twins (``hopper_psn.PLAIN``), whose output must be
+    equal where no spike flipped."""
+    import copy
+    import functools
+    from sdformerflow_tpu_torch.ops import hopper_psn as P
+    gen = torch.Generator(dev).manual_seed(SEED + 222)
+    x = x.to(dev, torch.float32)
+    g = []
+    flips = [0, 0]
+    worst = dict.fromkeys(GRAD_NAMES, 0.0)
+    terms = dict.fromkeys(GRAD_NAMES, 0.0)
+
+    def checked_fwd(x, w, b, *, scale=None, shift=None):
+        y = P.fused_affine_psn(x, w, b, scale=scale, shift=shift)
+        flips[0] += int((y != P.psn_spike(x, w, b, scale=scale,
+                                          shift=shift)).sum())
+        flips[1] += y.numel()
+        return y
+
+    def checked_bwd(x, gy, w, b, **kw):
+        got = P.fused_psn_backward(x, gy, w, b, **kw)
+        want = plain64(P, x, gy, w, b, **kw)
+        sums = sum_of_terms(P, x, gy, w, b, **kw)
+        for name, e in k2b_errors(got, want).items():
+            i = GRAD_NAMES.index(name)
+            worst[name] = max(worst[name], e)
+            scale = (sums[i] if i else want[0]).abs().max().item()
+            terms[name] = max(terms[name], rel_err(got[i], want[i])[0]
+                              / max(scale, 1e-300))
+        return got
+
+    def run(m, impl):
+        xi = x.clone().requires_grad_(True)
+        with site_functions(functools.partial(P.affine_psn, impl=impl)):
+            y = first_out(m(xi))
+            if not g:
+                g.append(torch.randn(y.shape, generator=gen, device=dev))
+            (y * g[0]).sum().backward()
+        return y.detach(), xi.grad
+
+    m, calls = copy.deepcopy(layer).to(dev).float().train(), [0]
+    with psn_calls(m, calls):
+        P.fused_affine_psn.launches = P.fused_psn_backward.launches = 0
+        y, dx = run(m, P.PSNImpl(checked_fwd, checked_bwd))
+        torch.cuda.synchronize()
+        k2, k2b = P.fused_affine_psn.launches, P.fused_psn_backward.launches
+    check(k2 == k2b == calls[0] > 0, f"[22] {label} train: K2 {k2}, K2b "
+          f"{k2b} launches for {calls[0]} PSN-site calls")
+    check(flips[0] <= MAX_FLIP_SHARE * flips[1], f"[22] {label} train: K2 "
+          f"flipped {flips[0]} of {flips[1]} spikes")
+    check(captured_ok(worst, terms), f"[22] {label} train: K2b against the "
+          f"float64 twin {worst} (reductions over their sums of |terms| "
+          f"{terms})")
+    y_plain, dx_plain = run(copy.deepcopy(layer).to(dev).float().train(),
+                            P.PLAIN)
+    same = torch.equal(y, y_plain)
+    if flips[0] == 0:
+        check(same, f"[22] {label} train: no spike flipped, yet the output "
+              "differs from the plain twins'")
+    return dict(k2=k2, k2b=k2b, flipped=flips[0], spikes=flips[1],
+                k2b_err=worst, k2b_terms_err=terms, same_as_plain=same,
+                dx_rel_to_plain=rel_err(dx, dx_plain)[1])
+
+
+def sep_conv_layers(torch, dev, config, state_dict, card):
+    """(a) the four MS Sep-conv layers (through the encoder block, which
+    holds MSSepConv) at en4's shapes: bf16 eval and f32 train."""
+    from sdformerflow_tpu_torch.models import spiking_layers as L
+    from sdformerflow_tpu_torch.models.registry import randomize_
+    from sdformerflow_tpu_torch.training.config import build_configs
+    cfg = build_configs(config)[2]
+    shapes = en4_layer_inputs(torch, dev, config, state_dict)
+    (dec_in, dec_out), (pred_in, pred_out) = shapes["decoder"], \
+        shapes["pred"]
+    layers = {
+        "MSSpikingSepConvEncoderBlock": (
+            L.MSSpikingSepConvEncoderBlock(SEP_IN[-1], SEP_OUT, cfg),
+            SEP_IN),
+        "MSSpikingSepTransposeDecoderLayer": (
+            L.MSSpikingSepTransposeDecoderLayer(dec_in[-1], dec_out, cfg),
+            dec_in),
+        "MSSpikingSepPredLayer": (
+            L.MSSpikingSepPredLayer(pred_in[-1], pred_out, cfg), pred_in)}
+    out = {}
+    for i, (name, (layer, shape)) in enumerate(layers.items()):
+        randomize_(layer, torch.Generator().manual_seed(SEED + 230 + i))
+        gen = torch.Generator().manual_seed(SEED + 240 + i)
+        x = 1.5 * torch.randn(shape, generator=gen)
+        ev, y = layer_eval(torch, dev, name, layer, x)
+        tr = layer_train(torch, dev, name, layer, x)
+        out[name] = dict(input=list(shape), eval_bf16=ev, train_f32=tr)
+        log(f"[22] {name} at {list(shape)} -> {ev['out_shape']}: bf16 eval "
+            f"K2 {ev['k2']} launches (one a PSN site; sites {ev['sites']}),"
+            f" {ev['flipped']} of {ev['spikes']} spikes flipped against the"
+            f" twin, dyadic bitwise; f32 train K2 {tr['k2']} ({tr['flipped']}"
+            f" of {tr['spikes']} spikes flipped), K2b {tr['k2b']}, K2b vs "
+            "the float64 twin "
+            + ", ".join(f"{k} {v:.2e}" for k, v in tr["k2b_err"].items())
+            + f"; plain-twin step equal {tr['same_as_plain']} (dx "
+            f"{tr['dx_rel_to_plain']:.2e} of its largest)")
+        del y
+    torch.cuda.empty_cache()
+    return out, shapes
+
+
+def sdsa_attention(torch, dev, hw, card):
+    """(b) SpikingBNWindowAttention3D(spike_input=True, spike_output=False)
+    on the SEW model's first-stage window batch, bf16 eval and f32 train
+    against the plain twins."""
+    from sdformerflow_tpu_torch.models.registry import randomize_
+    from sdformerflow_tpu_torch.models.spiking_swin import (
+        SpikingBNWindowAttention3D)
+    from sdformerflow_tpu_torch.training.config import build_configs
+    from sdformerflow_tpu_torch.training.train_step import make_eval_step
+    config = zoo_config("SpikingformerFlowNet")
+    model = zoo_model(torch, config).to(dev)
+    attn = next(m for m in model.modules()
+                if isinstance(m, SpikingBNWindowAttention3D))
+    grabbed = []
+    h = attn.register_forward_pre_hook(
+        lambda mod, args: grabbed.append(args[0].float().clone()))
+    with torch.inference_mode():
+        make_eval_step(model, compute_dtype=torch.bfloat16)(
+            torch.from_numpy(voxel_requests(1, 10, hw, SEED + 223)[0])[None]
+            .to(dev))
+    h.remove()
+    x = grabbed[0].cpu()
+    _, swin, cfg = build_configs(config)
+    sdsa = randomize_(SpikingBNWindowAttention3D(
+        attn.dim, attn.window_size, attn.num_heads, cfg,
+        qk_scale=swin.qk_scale, norm="BN", spike_input=True,
+        spike_output=False), torch.Generator().manual_seed(SEED + 224))
+    del model, attn, grabbed
+    torch.cuda.empty_cache()
+    ev, y = layer_eval(torch, dev, "SDSA attention", sdsa, x)
+    check(ev["k2"] == 4, f"[22] SDSA: K2 {ev['k2']}, expected 4 (proj_sn_in,"
+          " q, k, v)")
+    check(not bool(((y == 0) | (y == 1)).all()),
+          "[22] SDSA: spike_output=False returned spikes")
+    tr = layer_train(torch, dev, "SDSA attention", sdsa, x)
+    log(f"[22] SDSA SpikingBNWindowAttention3D(spike_input=True, "
+        f"spike_output=False) on the SEW model's first-stage windows "
+        f"{list(x.shape)}: bf16 eval K2 {ev['k2']}, {ev['flipped']} of "
+        f"{ev['spikes']} spikes flipped, equal to the plain twins "
+        f"{ev['same_as_plain']}; f32 train K2 {tr['k2']} ({tr['flipped']} of "
+        f"{tr['spikes']} spikes flipped), K2b {tr['k2b']}, "
+        + ", ".join(f"{k} {v:.2e}" for k, v in tr["k2b_err"].items())
+        + f"; equal to the plain twins' step {tr['same_as_plain']}")
+    return dict(input=list(x.shape), eval_bf16=ev, train_f32=tr)
+
+
+def local_plain_proj(torch, dev, hw, card):
+    """(c) SpikingPatchEmbedLocal(spiking_proj=False) at en4's width
+    (embed 96, T = 10, 4 residual blocks) on a 288x384 10-bin input."""
+    from sdformerflow_tpu_torch.models.registry import randomize_
+    from sdformerflow_tpu_torch.models.spiking_patch_embed import (
+        SpikingPatchEmbedLocal)
+    from sdformerflow_tpu_torch.training.config import build_configs, \
+        load_config
+    cfg = build_configs(load_config(CONFIG))[2]
+    embed = randomize_(SpikingPatchEmbedLocal(
+        hw, (1, 1, 2, 2), 10, 96, cfg, spiking_proj=False),
+        torch.Generator().manual_seed(SEED + 225))
+    gen = torch.Generator().manual_seed(SEED + 226)
+    x = torch.rand((1, 10, 2) + tuple(hw), generator=gen) \
+        * (torch.rand((1, 10, 2) + tuple(hw), generator=gen) < 0.3)
+    ev, y = layer_eval(torch, dev, "Local embed (plain proj)", embed, x)
+    check(ev["out_shape"] == [10, 1, hw[0] // 2, hw[1] // 2, 96],
+          f"[22] Local embed: {ev['out_shape']}")
+    check(not bool(((y == 0) | (y == 1)).all()),
+          "[22] Local embed: the plain projection returned spikes")
+    log(f"[22] SpikingPatchEmbedLocal(spiking_proj=False), embed 96, "
+        f"{hw[0]}x{hw[1]} -> {ev['out_shape']}, bf16: K2 {ev['k2']} "
+        f"launches (head and 4 residual blocks), {ev['flipped']} of "
+        f"{ev['spikes']} spikes flipped, equal to the plain twins "
+        f"{ev['same_as_plain']}")
+    del y
+    torch.cuda.empty_cache()
+    return dict(eval_bf16=ev)
+
+
+def zoo_export_config(name):
+    """The family's full-width config: the phase 17 zoo configs (the en4
+    cut to 3 stages; SpikingMultiResUNet with its registry's width) and
+    the DSEC STT config (two 10-bin chunks a window)."""
+    from sdformerflow_tpu_torch.training.config import load_config
+    if name == "STTFlowNet":
+        return load_config(STT_CONFIG)
+    if name == "MS_SpikingformerFlowNet":
+        return zoo_config(name, "MS_Spiking_PatchEmbed_Conv_sfn")
+    config = zoo_config(name)
+    if name == "SpikingMultiResUNet":
+        for key in ("base_num_channels", "kernel_size", "use_upsample_conv",
+                    "num_encoders"):
+            config["model"].pop(key, None)
+    return config
+
+
+def zoo_export(torch, dev, root, name, card):
+    """export_model --verify of one family at full width in bf16 from
+    seeded random weights (and the 2^20-event program for the SEW model):
+    the reloaded programs equal the live step bit for bit (verify), their
+    K1 / K2 / K3 op nodes equal the live step's launches and the reloaded
+    program's, device busy within EXPORT_BUSY_TOL of the live step's."""
+    import io
+    import yaml
+    from sdformerflow_tpu_torch import export_model
+    from sdformerflow_tpu_torch.models.registry import get_model, randomize_
+    from sdformerflow_tpu_torch.training import export as X
+    from sdformerflow_tpu_torch.training.checkpoints import save_checkpoint
+    from sdformerflow_tpu_torch.training.config import (build_configs,
+                                                        chunk_bins)
+    config = zoo_export_config(name)
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    path, ckpt, out = (os.path.join(d, "config.yaml"),
+                       os.path.join(d, "ckpt"), os.path.join(d, "export"))
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    model = get_model(name, *build_configs(config),
+                      input_bins=chunk_bins(config))
+    randomize_(model, torch.Generator().manual_seed(SEED + 250))
+    save_checkpoint(ckpt, model, torch.optim.SGD(model.parameters(), lr=0),
+                    epoch=0, step=0)
+    del model
+    timing, loaded = {"load_s": 0.0}, {}
+
+    def timed_export(export):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            meta = export(*a, **kw)
+            timing["export_s"] = time.perf_counter() - t0
+            return meta
+        return run
+
+    def timed_load(load):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            meta, fns = load(*a, **kw)
+            timing["load_s"] += time.perf_counter() - t0
+            loaded.update(fns)
+            return meta, fns
+        return run
+
+    events = name == "SpikingformerFlowNet"
+    argv = ["--train_config", path, "--ckpt", ckpt, "--out", out,
+            "--device", str(dev), "--verify"]
+    if events:
+        argv += ["--event_buckets", str(K3_EVENTS)]
+    text = io.StringIO()
+    with patched(X, "export_flow_model", timed_export), \
+            patched(X, "load_exported", timed_load), \
+            contextlib.redirect_stdout(text):
+        try:
+            meta = export_model.main(argv)
+        except SystemExit as e:
+            raise SmokeFailure(f"[22] export_model --verify {name}: {e}")
+    names = sorted(meta["artifacts"])
+    check(meta["bf16"] and sorted(meta["verify"]) == names
+          and not any(meta["verify"].values()),
+          f"[22] {name} --verify: {meta['verify']}")
+    mb = {k: os.path.getsize(os.path.join(out, k + ".pt2")) / 1e6
+          for k in names}
+    live_model = X.build_inference_state(config, ckpt, device=dev)
+    cast = X.cast_for(live_model, True)
+    arts = {}
+    for art in names:
+        fn = loaded[art]
+        live = X._eval_fn(config, cast, bf16=True, events=art != "voxel")
+        x = export_model.random_inputs(meta, art, seed=1)
+        nodes = collections.Counter(str(n.target)
+                                    for n in fn.program.graph.nodes)
+        graph = {k: nodes[op] for k, op in EXPORT_OPS.items()}
+        counts = {}
+        for route, run in (("live", live), ("reloaded", fn)):
+            for w in kernel_wrappers().values():
+                w.launches = 0
+            with torch.inference_mode():
+                y = run(x)
+            torch.cuda.synchronize()
+            counts[route] = {k: kernel_wrappers()[k].launches
+                             for k in EXPORT_OPS}
+            if route == "live":
+                want = y
+            else:
+                check(torch.equal(y, want), f"[22] {name} {art}: the "
+                      "reloaded program differs from the live step")
+        check(counts["live"] == counts["reloaded"] == graph,
+              f"[22] {name} {art}: op nodes {graph}, launches {counts}")
+        # the median of EXPORT_BUSY_ROUNDS interleaved readings a route: one
+        # reading of 8 calls swung 2% on the same program
+        rounds = {"live": [], "reloaded": []}
+        with torch.inference_mode():
+            for _ in range(EXPORT_BUSY_ROUNDS):
+                for route, run in (("live", live), ("reloaded", fn)):
+                    rounds[route].append(device_ms_per_call(
+                        torch, lambda: run(x), 8))
+        busy = {k: None if None in v else float(np.median(v))
+                for k, v in rounds.items()}
+        if None not in busy.values():
+            check(abs(busy["reloaded"] - busy["live"])
+                  <= EXPORT_BUSY_TOL * busy["live"],
+                  f"[22] {name} {art}: device busy {busy}")
+        arts[art] = dict(mb=mb[art], op_nodes=graph, device_ms=busy,
+                         device_ms_rounds=rounds,
+                         input=meta["artifacts"][art]["input"])
+    del live_model, cast, loaded
+    torch.cuda.empty_cache()
+    log(f"[22] export_model --verify {name} (bf16, {config['loader']['crop']}"
+        f"): export {timing['export_s']:.1f} s, load {timing['load_s']:.1f} s"
+        f"; " + "; ".join(
+            f"{k} {v['mb']:.1f} MB, input {v['input']}, op nodes "
+            f"{v['op_nodes']} = live launches, busy live "
+            f"{v['device_ms']['live']} / reloaded "
+            f"{v['device_ms']['reloaded']} ms" for k, v in arts.items())
+        + f"; reloaded == live bit for bit; on {card}")
+    return dict(export_s=timing["export_s"], load_s=timing["load_s"],
+                artifacts=arts)
+
+
+def phase_close(torch, dev, config, state_dict, card):
+    """Phase 22: the modules that close the port, at full width."""
+    import shutil
+    t_phase = time.perf_counter()
+    hw = tuple(config["loader"]["crop"])
+    sep, shapes = sep_conv_layers(torch, dev, config, state_dict, card)
+    sdsa = sdsa_attention(torch, dev, hw, card)
+    local = local_plain_proj(torch, dev, hw, card)
+    root = os.path.join(ROOT, "sdformerflow_tpu_torch", "_build",
+                        "smoke_zoo_export")
+    shutil.rmtree(root, ignore_errors=True)
+    exports = {name: zoo_export(torch, dev, root, name, card)
+               for name in ZOO_EXPORTS}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[22] phase 22: {phase_s:.1f} s")
+    launches = {
+        "K2": {"sep_conv_eval": {k: v["eval_bf16"]["k2"]
+                                 for k, v in sep.items()},
+               "sep_conv_train": {k: v["train_f32"]["k2"]
+                                  for k, v in sep.items()},
+               "sdsa_eval": sdsa["eval_bf16"]["k2"],
+               "sdsa_train": sdsa["train_f32"]["k2"],
+               "local_plain_proj": local["eval_bf16"]["k2"]},
+        "K2b": {"sep_conv_train": {k: v["train_f32"]["k2b"]
+                                   for k, v in sep.items()},
+                "sdsa_train": sdsa["train_f32"]["k2b"]}}
+    export_launches = {k: {f"{n}/{a}": v["op_nodes"][k]
+                           for n, e in exports.items()
+                           for a, v in e["artifacts"].items()}
+                       for k in EXPORT_OPS}
+    return dict(sep_conv=sep, en4_shapes={k: [list(s), c] for k, (s, c)
+                                          in shapes.items()},
+                sdsa=sdsa, local_plain_proj=local, zoo_exports=exports,
+                launches=launches, launches_export=export_launches,
+                phase_s=phase_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -7146,6 +7659,7 @@ def main() -> int:
         dp = phase_dp(torch, dev, config, state_dict, card)
         prep = phase_prep(torch, dev, config, state_dict, card)
         surface = phase_train_surface(torch, dev, config, state_dict, card)
+        close = phase_close(torch, dev, config, state_dict, card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -7171,7 +7685,10 @@ def main() -> int:
     # an MS_SpikingformerFlowNet forward, K2 a SpikingMultiResUNet forward;
     # the data preparation's (phase 20): K3 a window of preprocess_dsec,
     # K1 and K2 the chained eval_dsec and eval_mvsec runs; the en4 step's
-    # plain and under remat dots / all, and a dp1 x tp2 rank's (phase 21)
+    # plain and under remat dots / all, and a dp1 x tp2 rank's (phase 21);
+    # the Sep-conv layers', the SDSA attention's and the Local embed's, and
+    # the op nodes (= launches) of every family's exported programs (phase
+    # 22)
     kernels = [
         {"name": "K1 fused spiking-QK attention interior", "route": "cuda",
          "source": "sdformerflow_tpu_torch/csrc/qk_attn.cu",
@@ -7290,6 +7807,8 @@ def main() -> int:
             for policy, r in surface["remat"]["steps"].items()}
         entry["launches_tp_step"] = \
             surface["tp"]["ranks"][0]["launches"].get(key, 0)
+        entry["launches_close"] = close["launches"].get(key, 0)
+        entry["launches_zoo_export"] = close["launches_export"].get(key, 0)
     log(json.dumps({"voxel_path": {
         "p50_ms": sl["p50"], "p90_ms": sl["p90"],
         "windows_per_s": sl["windows_per_s"],
@@ -7314,6 +7833,7 @@ def main() -> int:
     log(json.dumps({"dp": dp}))
     log(json.dumps({"data_prep": prep}))
     log(json.dumps({"train_surface": surface}))
+    log(json.dumps({"close": close}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -108,6 +108,19 @@ def _uniform(gen) -> float:
     return float(torch.rand((), generator=gen, dtype=torch.float64))
 
 
+def downsample_data(arrays, scale_factor: float):
+    """Bilinearly downscale a tuple of [..., C, H, W] tensors to
+    ``int(size * scale_factor)`` (JAX ``augmentation.py:116-127``, whose
+    ``jax.image.resize`` filters when it downsamples)."""
+    from ..ops.interpolate import resize_bilinear
+    out = []
+    for a in arrays:
+        hw = (int(a.shape[-2] * scale_factor), int(a.shape[-1] * scale_factor))
+        res = resize_bilinear(a.movedim(-3, -1), hw, antialias=True)
+        out.append(res.movedim(-1, -3))
+    return tuple(out)
+
+
 def build_train_augmentation(augment_names, augment_prob, crop=None,
                              max_drop_rate=0.6, rotation_degrees=(0.0, 0.0),
                              group=None):

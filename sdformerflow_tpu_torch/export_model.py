@@ -59,9 +59,8 @@ def random_inputs(meta, name, seed=0):
     rng = np.random.default_rng(seed)
     dev, batch, bins = meta["device"], meta["batch"], meta["num_bins"]
     if name == "voxel":
-        h, w = meta["crop"] or meta["resolution"]
         return torch.from_numpy(rng.standard_normal(
-            (batch, bins, h, w)).astype(np.float32)).to(dev)
+            meta["artifacts"]["voxel"]["input"]).astype(np.float32)).to(dev)
     n = meta["artifacts"][name]["input"]["valid"][1]
     h, w = meta["resolution"]
     t = rng.integers(0, 4 * (bins - 1) + 1, (batch, n))

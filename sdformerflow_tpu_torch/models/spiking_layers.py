@@ -32,9 +32,6 @@ rate and, with ``cfg.store_v_seq``, its membrane statistics, as device
 tensors under the keys ``scripts/eval_dsec.py`` writes. At a fused K2 site
 the membrane is K2's potential output; at a recurrent neuron the loop's
 ``return_v``. Outside a collection nothing is recorded.
-
-Not ported: the MS Sep-conv layers (``spiking_layers.py:631-748``, which no
-model of the JAX package calls).
 """
 
 from __future__ import annotations
@@ -626,6 +623,99 @@ class MSSpikingPredLayer(nn.Module):
 
     def forward(self, x):
         return self.conv(self.sn(x))
+
+
+class MSSepConv(nn.Module):
+    """Inverted separable conv with MS spikes (JAX ``MSSepConv``,
+    ``spiking_layers.py:631-665``): spike -> 1x1 ``pwconv1`` (to ``med =
+    expansion_ratio * dim``) -> norm -> spike (one site) -> depthwise
+    ``kernel_size`` ``dwconv`` -> 1x1 ``pwconv2`` (back to ``dim``) -> norm.
+    The depthwise conv has no adjacent norm: its bias stays tied to the
+    config's norm whether or not the norms are folded."""
+
+    def __init__(self, dim, cfg: SpikingConfig, kernel_size=7,
+                 expansion_ratio=2):
+        super().__init__()
+        med = int(expansion_ratio * dim)
+        self.sn1 = SpikingNeuron(cfg)
+        self.norm1 = spiking_norm(med, cfg)
+        self.pwconv1 = conv2d(dim, med, 1, bias=unnormed(self.norm1))
+        self.sn2 = SpikingNeuron(cfg)
+        self.dwconv = Conv2d(med, med, kernel_size,
+                             padding=kernel_size // 2, groups=med,
+                             bias=cfg.spike_norm is None)
+        self.norm2 = spiking_norm(dim, cfg)
+        self.pwconv2 = conv2d(med, dim, 1, bias=unnormed(self.norm2))
+
+    def forward(self, x):
+        x = norm_spike(self.norm1, self.sn2, self.pwconv1(self.sn1(x)))
+        return self.norm2(self.pwconv2(self.dwconv(x)))
+
+
+class MSSpikingSepConvEncoderBlock(nn.Module):
+    """The Sep-conv residual, then (spike -> 3x3 conv -> norm) x2 as a
+    second residual (JAX ``spiking_layers.py:668-695``); the first norm and
+    the second spike are one site."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig):
+        super().__init__()
+        self.sep = MSSepConv(in_channels, cfg)
+        self.sn1 = SpikingNeuron(cfg)
+        self.norm1 = spiking_norm(out_channels, cfg)
+        self.conv1 = conv2d(in_channels, out_channels, 3, 1, 1,
+                            bias=unnormed(self.norm1))
+        self.sn2 = SpikingNeuron(cfg)
+        self.norm2 = spiking_norm(in_channels, cfg)
+        self.conv2 = conv2d(out_channels, in_channels, 3, 1, 1,
+                            bias=unnormed(self.norm2))
+
+    def forward(self, x):
+        x = self.sep(x) + x
+        y = norm_spike(self.norm1, self.sn2, self.conv1(self.sn1(x)))
+        return x + self.norm2(self.conv2(y))
+
+
+class MSSpikingSepTransposeDecoderLayer(nn.Module):
+    """spike -> 3x3 stride-2 ``deconv1`` -> norm -> spike (one site) -> 1x1
+    stride-2 ``deconv2`` -> norm (JAX ``spiking_layers.py:698-725``): two
+    x2 transposed convs, so x4 whatever ``scale``, as in JAX."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 kernel_size=3, scale=2):
+        super().__init__()
+        self.sn1 = SpikingNeuron(cfg)
+        self.norm1 = spiking_norm(in_channels, cfg)
+        self.deconv1 = TorchConvTranspose(
+            in_channels, in_channels, kernel_size, stride=2,
+            padding=kernel_size // 2, output_padding=1,
+            bias=unnormed(self.norm1))
+        self.sn2 = SpikingNeuron(cfg)
+        self.norm2 = spiking_norm(out_channels, cfg)
+        self.deconv2 = TorchConvTranspose(in_channels, out_channels, 1,
+                                          stride=2, padding=0,
+                                          output_padding=1,
+                                          bias=unnormed(self.norm2))
+
+    def forward(self, x):
+        x = norm_spike(self.norm1, self.sn2, self.deconv1(self.sn1(x)))
+        return self.norm2(self.deconv2(x))
+
+
+class MSSpikingSepPredLayer(nn.Module):
+    """spike -> 1x1 ``pwconv`` -> depthwise ``kernel_size`` ``dwconv``, both
+    with bias and no norm (JAX ``spiking_layers.py:728-747``)."""
+
+    def __init__(self, in_channels, out_channels, cfg: SpikingConfig,
+                 kernel_size=1):
+        super().__init__()
+        self.sn = SpikingNeuron(cfg)
+        self.pwconv = conv2d(in_channels, out_channels, 1, bias=True)
+        self.dwconv = Conv2d(out_channels, out_channels, kernel_size,
+                             padding=kernel_size // 2, groups=out_channels,
+                             bias=True)
+
+    def forward(self, x):
+        return self.dwconv(self.pwconv(self.sn(x)))
 
 
 def _connect(out, identity, cnf: str, cfg: SpikingConfig):

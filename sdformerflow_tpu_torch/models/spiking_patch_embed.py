@@ -82,12 +82,13 @@ class SpikingPatchEmbedLocal(nn.Module):
     blocks -> the spiking projection at the patch stride (JAX
     ``spiking_patch_embed.py:56-122``). The input's (bin, polarity) pairs
     are chunked onto T steps at the reference head width
-    ``in_chans * 2 // (T - 1)``. Not ported: ``spiking_proj=False`` (the
-    reference's unreachable plain-conv projection)."""
+    ``in_chans * 2 // (T - 1)``. ``spiking_proj=False`` takes JAX's form
+    of the reference's unreachable plain-conv branch: ``proj`` is one 3x3
+    conv (patch stride, padding 1, bias) applied to each of the T steps."""
 
     def __init__(self, img_size, patch_size=(1, 1, 2, 2), in_chans=10,
                  embed_dim=96, cfg: SpikingConfig = SpikingConfig(),
-                 use_ms=False, num_res=4):
+                 use_ms=False, num_res=4, spiking_proj=True):
         super().__init__()
         self.in_chans, self.num_steps = in_chans, cfg.num_steps
         self.out_steps = cfg.num_steps
@@ -95,9 +96,13 @@ class SpikingPatchEmbedLocal(nn.Module):
         self.head = _head_or_ms(self.head_in, embed_dim, cfg, 1, use_ms)
         self.residual_encoding = SpikingResidualStack(embed_dim, cfg,
                                                       num_res, use_ms)
-        self.proj = SpikingEmbeddingLayer(embed_dim, embed_dim, cfg,
-                                          stride=tuple(patch_size[-2:]),
-                                          use_ms=use_ms)
+        if spiking_proj:
+            self.proj = SpikingEmbeddingLayer(embed_dim, embed_dim, cfg,
+                                              stride=tuple(patch_size[-2:]),
+                                              use_ms=use_ms)
+        else:
+            self.proj = Conv2d(embed_dim, embed_dim, 3,
+                               stride=tuple(patch_size[-2:]), padding=1)
         self.patches_resolution = _out_size(img_size, [patch_size[-2:]])
 
     def forward(self, x):

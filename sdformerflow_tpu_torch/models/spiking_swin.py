@@ -230,13 +230,16 @@ class SpikingBNWindowAttention3D(nn.Module):
     ``hd ** -0.5``; no softmax), swin-v2 the Hamming similarity
     ``0.5 (1 + (2q - 1)(2k - 1)ᵀ / hd)``, softmax, times ``exp(min(
     logit_scale, log 100))``, plus ``16 sigmoid`` of the cpb MLP's bias;
-    then the shift mask, ``attn @ v``, proj -> norm -> spike. Not ported:
-    JAX's SDSA switches ``spike_input`` / ``spike_output``, which no model
-    sets."""
+    then the shift mask, ``attn @ v``, proj -> norm -> spike. JAX's SDSA
+    switches: ``spike_input`` adds ``proj_sn_in``, a neuron at ``num_steps
+    = wd`` on the input before the q / k / v branches; ``spike_output=False``
+    returns proj -> norm unspiked (the norm then its own pass, skipped when
+    folded) and has no ``proj_sn``."""
 
     def __init__(self, dim, window_size, num_heads, cfg: SpikingConfig,
                  version="swinv1", qk_scale=None,
-                 pretrained_window_size=(0, 0, 0), norm="BN"):
+                 pretrained_window_size=(0, 0, 0), norm="BN",
+                 spike_input=False, spike_output=True):
         super().__init__()
         if version not in ("swinv1", "swinv2"):
             raise ValueError(f"unknown swin version {version!r}")
@@ -248,6 +251,9 @@ class SpikingBNWindowAttention3D(nn.Module):
         else:
             self.scale = qk_scale or hd ** -0.5
         acfg = cfg.replace(num_steps=window_size[0])
+        self.spike_input, self.spike_output = spike_input, spike_output
+        if spike_input:
+            self.proj_sn_in = SpikingNeuron(acfg)
         self.q = _QKVBranch(dim, acfg, norm)
         self.k = _QKVBranch(dim, acfg, norm)
         self.v = _QKVBranch(dim, acfg, norm)
@@ -268,7 +274,8 @@ class SpikingBNWindowAttention3D(nn.Module):
                 persistent=False)
         self.proj = nn.Linear(dim, dim, bias=True)
         self.proj_bn = branch_norm(dim, acfg, norm)
-        self.proj_sn = SpikingNeuron(acfg)
+        if spike_output:
+            self.proj_sn = SpikingNeuron(acfg)
 
     def position_bias(self, n: int, dtype) -> torch.Tensor:
         """[nh, n, n]: the v1 table's rows, or 16 sigmoid of the cpb MLP."""
@@ -290,6 +297,8 @@ class SpikingBNWindowAttention3D(nn.Module):
         T, B_, Hw, Ww, C = x.shape
         nh = self.num_heads
         hd = C // nh
+        if self.spike_input:
+            x = self.proj_sn_in(x)
         q = self.q(x).reshape(B_, nh, -1, hd)
         k = self.k(x).reshape(B_, nh, -1, hd)
         v = self.v(x).reshape(B_, nh, -1, hd)
@@ -309,7 +318,8 @@ class SpikingBNWindowAttention3D(nn.Module):
                 + mask.to(attn.dtype)[None, :, None]
             attn = attn.reshape(-1, nh, N, N)
         out = self.proj(_refold_out(attn @ v, T, Hw, Ww, C))
-        out = norm_spike(self.proj_bn, self.proj_sn, out)
+        out = norm_spike(self.proj_bn, self.proj_sn, out) \
+            if self.spike_output else self.proj_bn(out)
         return (out, attn) if return_attention else out
 
 

@@ -5,7 +5,9 @@
 computed in float32, clipped to the input extent (torch's legacy
 'nearest'). ``resize_bilinear``: half-pixel centers, edge clamp
 (``F.interpolate(mode="bilinear", align_corners=False)``, the definition
-``jax.image.resize`` also has when it upsamples).
+``jax.image.resize`` also has when it upsamples; with ``antialias`` its
+definition when it downsamples too, a triangle filter widened by the
+scale).
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
     return x.index_select(-2, _src_index(w, ow, x.device))
 
 
-def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, out_hw,
+                    antialias: bool = False) -> torch.Tensor:
     """Bilinear resize of [..., H, W, C] to [..., out_h, out_w, C]."""
     lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
     y = F.interpolate(x.reshape(-1, h, w, c).permute(0, 3, 1, 2),
                       size=tuple(out_hw), mode="bilinear",
-                      align_corners=False)
+                      align_corners=False, antialias=antialias)
     return y.permute(0, 2, 3, 1).reshape(*lead, *out_hw, c)

@@ -33,6 +33,15 @@ def get_window_size(x_size, window_size, shift_size=None):
     return tuple(use_window), tuple(use_shift)
 
 
+def window_partition_v2(x: torch.Tensor, window_size) -> torch.Tensor:
+    """The reference layout's partition: [B, D, H, W, C] -> [wd, B*nW, wh,
+    ww, C] (raw refold); :func:`window_partition_v2_tm` gives the same
+    elements from time-major [D, B, H, W, C]."""
+    wd, wh, ww = window_size
+    return window_partition(x, window_size).reshape(wd, -1, wh, ww,
+                                                    x.shape[-1])
+
+
 def window_partition_v2_tm(x: torch.Tensor, window_size,
                            per_row: bool = False) -> torch.Tensor:
     """[D, B, H, W, C] -> [wd, B*nW, wh, ww, C] (raw refold). The refold

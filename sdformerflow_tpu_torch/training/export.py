@@ -13,7 +13,8 @@ torch, and no model code.
 Artifacts written by :func:`export_flow_model` into ``out_dir``:
 
 - ``voxel.pt2``: flow from a preprocessed voxel chunk ``[B, bins, H, W]``
-  float32 (crop size), the eval-protocol step;
+  float32 (crop size; ``bins`` the chunk's, ``data.num_frames *
+  data.num_chunks``, which an STT config doubles), the eval-protocol step;
 - ``events_<N>.pt2``, one per requested event bucket: flow from raw padded
   event buffers ``{x, y, t, p: [B, N] float32, valid: [B, N] bool}``,
   voxelized on the device (K3 on the card) and center-cropped, the serving
@@ -24,7 +25,11 @@ Both return the finest flow ``[B, 2, H, W]`` float32. Deviation from JAX:
 an exported program is tied to the device it was traced on (its weights
 live there and its op nodes dispatch by device), so the meta records
 ``device`` where JAX records ``platforms``, and there is no multi-platform
-artifact.
+artifact. JAX traces the voxel step at ``data.num_frames`` bins, which
+an STT model built for two chunks refuses; the port traces it at the
+chunk's bins, and refuses event buckets for such a config up front (the
+server's ``ValueError``: the events are voxelized into ``num_frames``
+bins).
 """
 
 from __future__ import annotations
@@ -148,10 +153,18 @@ def export_flow_model(config: dict, model: nn.Module, out_dir: str, *,
     ``torch.export`` programs under ``out_dir``, traced under
     ``torch.no_grad()``. Returns the metadata dict (also written to
     ``export_meta.json``)."""
+    from .config import chunk_bins
+
+    num_bins, in_bins = config["data"].get("num_frames", 10), \
+        chunk_bins(config)
+    if event_buckets and in_bins != num_bins:
+        raise ValueError(
+            f"events are voxelized into data.num_frames = {num_bins} bins "
+            f"but the model takes {in_bins}-bin chunks (data.num_chunks = "
+            f"{in_bins // num_bins}): export the voxel program only")
     os.makedirs(out_dir, exist_ok=True)
     device = torch.device(device)
     model = cast_for(model, bf16)
-    num_bins = config["data"].get("num_frames", 10)
     res = tuple(config["loader"].get("resolution", (480, 640)))
     crop = config["loader"].get("crop")
     h, w = tuple(crop) if crop else res
@@ -165,7 +178,7 @@ def export_flow_model(config: dict, model: nn.Module, out_dir: str, *,
             program = torch.export.export(fn, (example,))
         torch.export.save(program, os.path.join(out_dir, name + ".pt2"))
 
-    voxel_shape = (batch, num_bins, h, w)
+    voxel_shape = (batch, in_bins, h, w)
     _export(_eval_fn(config, model, bf16=bf16, events=False),
             torch.zeros(voxel_shape, device=device), "voxel")
     meta["artifacts"]["voxel"] = {"input": list(voxel_shape),

@@ -46,3 +46,10 @@ class RunLogger:
 
 def count_parameters(model) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def print_parameters(model, prefix=""):
+    """One line a parameter of ``model``: ``<name>: <shape> = <size>``
+    (JAX ``utils/logging.py:print_parameters``, over flax's leaves)."""
+    for name, p in model.named_parameters():
+        print(f"{prefix}{name}: {tuple(p.shape)} = {p.numel()}")
