@@ -30,6 +30,8 @@ import threading
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 def make_mesh(n_data=None, devices=None) -> list:
     """The devices of a data axis: the first ``n_data`` of ``devices``
@@ -168,6 +170,17 @@ def _map(fn, batch):
     return fn(batch)
 
 
+def _waited(source):
+    """``source``'s items, each wait for one in a ``train.batch`` span."""
+    end = object()
+    while True:
+        with tracing.span("train.batch"):
+            item = next(source, end)
+        if item is end:
+            return
+        yield item
+
+
 def prefetch_to_device(iterator, device, size: int = 2):
     """Batches of numpy arrays (nested dicts) -> the same batches as tensors
     on ``device``, keeping ``size`` batches in flight so that the copy of
@@ -181,12 +194,18 @@ def prefetch_to_device(iterator, device, size: int = 2):
     waits for that stream (``wait_stream``) and each of its tensors is
     marked as used there (``record_stream``), so the caching allocator does
     not give its memory to another tensor while the compute stream may
-    still read it. On the CPU the tensors are the host arrays' views."""
+    still read it. On the CPU the tensors are the host arrays' views.
+
+    Each wait for the next host batch is a ``train.batch`` span
+    (``utils/tracing.py``)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     source = host_prefetch((_tensors(b, cuda) for b in iterator), size=size)
     if not cuda:
-        yield from source
+        try:
+            yield from _waited(source)
+        finally:
+            source.close()
         return
     side = torch.cuda.Stream(device)
     pending = collections.deque()
@@ -201,7 +220,7 @@ def prefetch_to_device(iterator, device, size: int = 2):
         return _map(lambda t: (t.record_stream(compute), t)[1], batch)
 
     try:
-        for batch in source:
+        for batch in _waited(source):
             pending.append(put(batch))
             if len(pending) == size:
                 yield take(pending.popleft())

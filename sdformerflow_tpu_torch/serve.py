@@ -20,8 +20,19 @@ Protocol (numpy .npz bodies):
                size) or ``x,y,t,p`` ([N] raw events at sensor resolution)
                -> npz response with ``flow`` ([2, H, W] float32); 400 with
                the error's text when the body or the request is bad
-  GET  /stats  -> JSON {served, pending, latency_ms_p50, latency_ms_p95}
+  GET  /stats  -> JSON {served, pending, latency_ms_p50, latency_ms_p95,
+               serve.requests, serve.groups, serve.rows, serve.event_slots,
+               serve.failed}: the counters since the start (requests
+               launched, forwards, rows launched with their padding, raw
+               event slots voxelized, requests answered with an error)
   GET  /healthz -> 200 "ok"
+
+Where the time goes inside the server: its dispatch and fetch threads
+record spans (``utils/tracing.py``: each request's ``serve.queue``, each
+forward's ``serve.pack``, ``serve.upload`` and ``serve.issue``) while a
+``torch.profiler`` session runs or inside ``tracing.enable()``;
+``tracing.chrome_events(trace["baseTimeNanoseconds"])`` gives them as
+chrome-trace events to add to the profiler's exported trace (Perfetto).
 """
 
 from __future__ import annotations

@@ -54,6 +54,7 @@ sdformerflow_tpu_torch.serve``).
 
 from __future__ import annotations
 
+import itertools
 import queue as queue_mod
 import threading
 import time
@@ -68,6 +69,11 @@ from .parallel.mesh import distinct, make_mesh, replicate
 from .training.config import chunk_bins
 from .training.export import build_inference_state, step_kwargs
 from .training.train_step import make_eval_step
+from .utils import tracing
+
+# counted at all times (``stats()``), and into the tracer while it is on
+COUNTERS = ("serve.requests", "serve.groups", "serve.rows",
+            "serve.event_slots", "serve.failed")
 
 
 def next_bucket(n: int, minimum: int = 4096) -> int:
@@ -156,6 +162,9 @@ class FlowServer:
         self._lock = threading.Lock()
         self._served = 0
         self._latencies: list = []
+        self._counts = dict.fromkeys(COUNTERS, 0)
+        self._request_ids = itertools.count()
+        self._group_ids = itertools.count()
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, daemon=True, name="flow-dispatch")
         self._fetcher = threading.Thread(
@@ -198,7 +207,8 @@ class FlowServer:
         if self._closed.is_set():
             raise RuntimeError("server closed")
         fut: Future = Future()
-        self._requests.put((fut, request, time.perf_counter()))
+        self._requests.put((fut, request, time.perf_counter_ns(),
+                            next(self._request_ids)))
         return fut
 
     def infer(self, request):
@@ -252,11 +262,16 @@ class FlowServer:
         return buf
 
     def stats(self) -> dict:
+        """Requests served and pending, the p50 / p95 latency (ms) of the
+        last 512-1024 served, and the counters since the start
+        (``COUNTERS``: requests launched, groups, rows launched with their
+        padding, event slots, failed requests)."""
         with self._lock:
             lat = list(self._latencies)
             served = self._served
+            counts = dict(self._counts)
         out = {"served": served, "pending": self._requests.qsize()
-               + self._inflight.qsize()}
+               + self._inflight.qsize(), **counts}
         if lat:
             out["latency_ms_p50"] = float(np.percentile(lat, 50) * 1e3)
             out["latency_ms_p95"] = float(np.percentile(lat, 95) * 1e3)
@@ -307,7 +322,7 @@ class FlowServer:
             try:
                 compatible = self._batch_key(nxt[1]) == key
             except Exception as e:  # noqa: BLE001 - delivered via future
-                nxt[0].set_exception(e)
+                self._fail([nxt[0]], e)
                 continue
             if not compatible:
                 self._carry = nxt   # the next group's leader
@@ -326,28 +341,48 @@ class FlowServer:
                 break
             group, stop = (self._collect_group(item) if self._batch > 1
                            else ([item], False))
-            live = [(f, r, t) for f, r, t in group
-                    if f.set_running_or_notify_cancel()]
+            live = [item for item in group
+                    if item[0].set_running_or_notify_cancel()]
             if not live:
                 continue
+            gid = next(self._group_ids)
+            if tracing.on():
+                now = time.perf_counter_ns()
+                for _, _, t, rid in live:
+                    tracing.record("serve.queue", t, now, key=rid,
+                                   parent=("serve.pack", gid))
             try:
-                parts = self._launch([r for _, r, _ in live])
+                parts, tally = self._launch([r for _, r, _, _ in live], gid)
             except Exception as e:  # noqa: BLE001 - delivered via futures
-                for f, _, _ in live:
-                    f.set_exception(e)
+                self._fail([f for f, _, _, _ in live], e)
                 continue
-            self._inflight.put(([f for f, _, _ in live], parts,
-                                [t for _, _, t in live]))
+            self._inflight.put(([f for f, _, _, _ in live], parts,
+                                [t for _, _, t, _ in live], tally))
         # fail what is still queued once closed
+        closed = RuntimeError("server closed")
         if self._carry is not None:
-            self._carry[0].set_exception(RuntimeError("server closed"))
+            self._fail([self._carry[0]], closed)
         while True:
             try:
                 item = self._requests.get_nowait()
             except queue_mod.Empty:
                 break
             if item is not None:
-                item[0].set_exception(RuntimeError("server closed"))
+                self._fail([item[0]], closed)
+
+    def _tally(self, counts: dict):
+        """Add ``counts`` to the server's counters (under the lock) and to
+        the tracer's (while it is on)."""
+        with self._lock:
+            for name, n in counts.items():
+                self._counts[name] += n
+        for name, n in counts.items():
+            tracing.count(name, n)
+
+    def _fail(self, futures, exc):
+        self._tally({"serve.failed": len(futures)})
+        for fut in futures:
+            fut.set_exception(exc)
 
     def _rows_by_device(self, rows: int):
         """[(device, [row indices])]: row i of a batch runs on
@@ -360,62 +395,71 @@ class FlowServer:
             out.setdefault(dev, []).append(i)
         return list(out.items())
 
-    def _launch(self, requests):
-        """Upload a group of compatible requests, padded to the batch, and
-        launch each device's rows as one forward; returns [(finest flows on
-        the device (launched, not waited for), row indices)]."""
+    def _launch(self, requests, gid: int):
+        """Upload group ``gid`` of compatible requests, padded to the batch,
+        and launch each device's rows as one forward; returns ([(finest
+        flows on the device (launched, not waited for), row indices)], the
+        group's counts)."""
         rows = max(self._batch, len(requests))
         events = isinstance(requests[0], dict)
-        if events:
-            if self._input_bins != self._num_bins:
-                raise ValueError(
-                    f"events are voxelized into data.num_frames = "
-                    f"{self._num_bins} bins but the model takes "
-                    f"{self._input_bins}-bin chunks (data.num_chunks = "
-                    f"{self._input_bins // self._num_bins}): send voxel "
-                    "chunks")
-            buf = self._pack_group(requests, rows)
-        else:
-            first = np.asarray(requests[0], np.float32)
-            buf = torch.zeros((rows,) + first.shape, dtype=torch.float32,
-                              pin_memory=self._pinned())
-            for b, r in enumerate(requests):
-                buf[b] = torch.as_tensor(np.asarray(r, np.float32))
+        if events and self._input_bins != self._num_bins:
+            raise ValueError(
+                f"events are voxelized into data.num_frames = "
+                f"{self._num_bins} bins but the model takes "
+                f"{self._input_bins}-bin chunks (data.num_chunks = "
+                f"{self._input_bins // self._num_bins}): send voxel "
+                "chunks")
+        with tracing.span("serve.pack", gid):
+            if events:
+                buf = self._pack_group(requests, rows)
+            else:
+                first = np.asarray(requests[0], np.float32)
+                buf = torch.zeros((rows,) + first.shape,
+                                  dtype=torch.float32,
+                                  pin_memory=self._pinned())
+                for b, r in enumerate(requests):
+                    buf[b] = torch.as_tensor(np.asarray(r, np.float32))
         parts = []
         for dev, idx in self._rows_by_device(rows):
             part = buf[idx[0]:idx[-1] + 1] if idx == list(
                 range(idx[0], idx[-1] + 1)) else buf[idx]
-            part = part.to(dev, non_blocking=True)
+            with tracing.span("serve.upload", gid):
+                part = part.to(dev, non_blocking=True)
             voxel_step, events_step = self._steps[dev]
-            if events:
-                flows = events_step({
-                    "x": part[:, 0], "y": part[:, 1], "t": part[:, 2],
-                    "p": part[:, 3], "valid": part[:, 4] != 0})
-            else:
-                flows = voxel_step(part)
+            with tracing.span("serve.issue", gid):
+                if events:
+                    flows = events_step({
+                        "x": part[:, 0], "y": part[:, 1], "t": part[:, 2],
+                        "p": part[:, 3], "valid": part[:, 4] != 0})
+                else:
+                    flows = voxel_step(part)
             parts.append((flows[-1], idx))   # finest scale
-        return parts
+        tally = {"serve.requests": len(requests), "serve.groups": 1,
+                 "serve.rows": rows,
+                 "serve.event_slots": buf.shape[0] * buf.shape[2]
+                 if events else 0}
+        return parts, tally
 
     def _fetch_loop(self):
         while True:
             item = self._inflight.get()
             if item is None:
                 break
-            futs, parts, t0s = item
+            futs, parts, t0s, tally = item
+            self._tally(tally)
             try:
                 rows = {}
                 for flow, idx in parts:
                     host = flow.cpu().numpy()   # waits for the device
                     rows.update(zip(idx, host))
             except Exception as e:  # noqa: BLE001 - delivered via futures
-                for fut in futs:
-                    fut.set_exception(e)
+                self._fail(futs, e)
                 continue
             for i, fut in enumerate(futs):
                 fut.set_result(rows[i])
-            now = time.perf_counter()
+            now = time.perf_counter_ns()
             with self._lock:
                 self._served += len(futs)
-                self._latencies.extend(now - t0 for t0 in t0s)
+                self._latencies.extend((now - t0) / 1e9 for t0 in t0s)
                 if len(self._latencies) > 1024:
                     del self._latencies[:512]

@@ -21,6 +21,7 @@ from ..ops.hopper_embed import fused_embed_forward
 from ..ops.hopper_voxel import voxel_batch_signed
 from ..ops.normalization import encode_input
 from ..parallel.multihost import all_reduce_sum
+from ..utils import tracing
 from .evaluate import event_footprint_mask
 from .remat import Remat
 
@@ -137,6 +138,9 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
     (tensor parallelism; ``group`` is then the data group) gathers its
     layers' channels over its model group, and the optimizer's norm sums
     the sharded slices over it (``shard_model`` gives both the group).
+
+    Each call is one ``train.step`` span (``utils/tracing.py``): the host's
+    issue of the step.
     """
     params = dict(model.named_parameters())
     param_dtype = next(iter(params.values())).dtype
@@ -154,25 +158,26 @@ def make_train_step(model: nn.Module, optimizer, *, encoding="voxel",
                       else Remat(model, remat, generator))
 
     def train_step(batch):
-        _set_mode(model, train=True, generator=generator, group=group)
-        chunk = batch["events"] if "events" in batch else batch["chunk"]
-        x = _model_input(chunk, crop, voxelize, None, **kw)
-        mask = batch["mask"]
-        if mask_events:
-            mask = event_footprint_mask(mask, x)
-        optimizer.zero_grad()
-        with rematerialized:
-            flows = [f.to(torch.promote_types(f.dtype, torch.float32))
-                     for f in forward(x)]
-        loss = flow_loss_supervised(flows, batch["label"], mask,
-                                    flow_scaling=flow_scaling, gamma=gamma,
-                                    group=group)
-        loss.backward()
-        if remat is not None:
-            rematerialized.done()
-        grad_norm = optimizer.step(group=group)
-        return {"loss": all_reduce_sum(loss.detach(), group),
-                "grad_norm": grad_norm}
+        with tracing.span("train.step"):
+            _set_mode(model, train=True, generator=generator, group=group)
+            chunk = batch["events"] if "events" in batch else batch["chunk"]
+            x = _model_input(chunk, crop, voxelize, None, **kw)
+            mask = batch["mask"]
+            if mask_events:
+                mask = event_footprint_mask(mask, x)
+            optimizer.zero_grad()
+            with rematerialized:
+                flows = [f.to(torch.promote_types(f.dtype, torch.float32))
+                         for f in forward(x)]
+            loss = flow_loss_supervised(flows, batch["label"], mask,
+                                        flow_scaling=flow_scaling,
+                                        gamma=gamma, group=group)
+            loss.backward()
+            if remat is not None:
+                rematerialized.done()
+            grad_norm = optimizer.step(group=group)
+            return {"loss": all_reduce_sum(loss.detach(), group),
+                    "grad_norm": grad_norm}
 
     train_step.model = model
     return train_step

@@ -110,10 +110,10 @@ def _groups(server, monkeypatch):
     seen = []
     launch = server._launch
 
-    def spy(requests):
+    def spy(requests, gid):
         seen.append(["events" if isinstance(r, dict) else "voxel"
                      for r in requests])
-        return launch(requests)
+        return launch(requests, gid)
 
     monkeypatch.setattr(server, "_launch", spy)
     return seen
