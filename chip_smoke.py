@@ -6083,7 +6083,7 @@ def dp_serving(torch, dev, config, state_dict, card):
               f"batched serving flipped {pair0['flipped']} of "
               f"{pair0['spikes']} spikes against batch-1 serving")
         # K3 a row of an events group, against its plain twin
-        buf = batched._pack_group(windows[:2], 2)
+        buf = torch.cat([batched.pack_events(w) for w in windows[:2]])
         ev = {k: buf[:, i] for i, k in enumerate("xytp")}
         ev["valid"] = buf[:, 4] != 0
         vox_kw = dict(num_bins=10, height=SENSOR[0], width=SENSOR[1])

@@ -3,18 +3,23 @@
 
 The unit of work is one event window -> one flow map. A request is either
 a voxel chunk at crop size or a dict of raw events x/y/t/p at sensor
-resolution. Throughput comes from keeping the card busy across requests:
-PyTorch launches CUDA work asynchronously, so a dispatch thread packs,
-uploads and launches request k+1 while a fetch thread waits for request
-k's result on the host and resolves its future - the only thread that
-waits on the device.
+resolution. Throughput comes from keeping the card busy across requests,
+on three threads: a staging thread (``flow-stage``) fills each request's
+own host slab the moment it arrives, in arrival order; a dispatch thread
+(``flow-dispatch``) groups staged requests, copies their slabs to the
+device and launches the forward (PyTorch launches CUDA work
+asynchronously), so it packs nothing; a fetch thread waits for each
+group's result on the host and resolves its futures - the only thread
+that waits on the device. A request is staged while the group before it
+is issued.
 
-Raw events are packed on the host into one [1, 5, bucket] float32 buffer
-(x/y/t/p/valid; pinned on the card's host, ``native.pack_window``), copied
-to the device in one non-blocking transfer, voxelized there by K3
-(``ops/hopper_voxel.py``) and center-cropped inside the eval step. K3 is
-order-free, so the events are not sorted on the host. Event counts are
-padded to power-of-two buckets (:func:`next_bucket`).
+Raw events are packed on the host into the request's own [5, bucket]
+float32 slab (x/y/t/p/valid; pinned on the card's host,
+``native.pack_window``, which runs without the GIL), copied into its row
+of the group's device buffer by one non-blocking transfer, voxelized there
+by K3 (``ops/hopper_voxel.py``) and center-cropped inside the eval step.
+K3 is order-free, so the events are not sorted on the host. Event counts
+are padded to power-of-two buckets (:func:`next_bucket`).
 
 ``s2d=True`` serves the exact space-to-depth re-expression of the embed
 head (``training/s2d_embed.py``), as the JAX server's option does.
@@ -35,8 +40,9 @@ queued compatible requests (the same kind and event bucket, waiting
 ``batch_window_s`` for more; an incompatible request is parked as the next
 group's leader) into one batch padded to ``len(devices)`` rows; row i runs
 on ``devices[i]``, and each distinct device runs its rows as one batched
-forward on its own replica of the model (an events group is packed into
-one pinned ``[pad, 5, bucket]`` buffer, one K3 launch a row). The fetch
+forward on its own replica of the model (an events group fills one
+``[rows, 5, bucket]`` buffer on the device, a slab a row and the padded
+rows zeroed there, one K3 launch a row). The fetch
 thread resolves each request's future from its row. A batched row's flow
 is its batch-1 flow (``make_eval_step(per_row=True)``: each request's
 input is normalized on its own and the spiking swin blocks refold each row
@@ -59,7 +65,7 @@ import queue as queue_mod
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,7 +79,16 @@ from .utils import tracing
 
 # counted at all times (``stats()``), and into the tracer while it is on
 COUNTERS = ("serve.requests", "serve.groups", "serve.rows",
-            "serve.event_slots", "serve.failed")
+            "serve.event_slots", "serve.failed", "serve.staged")
+
+
+class Staged(NamedTuple):
+    """A request as the staging thread hands it to the dispatch thread."""
+    future: Future
+    submitted_ns: int      # time.perf_counter_ns() at submit
+    rid: int               # the request's id (its spans' key)
+    slab: torch.Tensor     # its own host buffer: [5, bucket] or the chunk
+    key: tuple             # (kind, bucket or shape): a batch shares one
 
 
 def next_bucket(n: int, minimum: int = 4096) -> int:
@@ -103,8 +118,8 @@ class FlowServer:
         fill a batch once one is in hand (only with ``devices``).
     bf16: run the bf16 inference path (params and activations bf16, BN
         statistics float32) - the deployment path.
-    max_pending: bound on queued and in-flight requests before ``submit``
-        blocks.
+    max_pending: bound on requests submitted and not yet answered
+        (queued, staged and in flight) before ``submit`` blocks.
     s2d: serve the space-to-depth re-expression of the embed head
         (``training/s2d_embed.py``, exact; the MS_PED embed with BN only),
         applied to the weights before the bf16 cast.
@@ -154,10 +169,12 @@ class FlowServer:
         if batched:
             self._replicate(config, bf16)
 
-        self._requests: "queue_mod.Queue" = queue_mod.Queue(
-            maxsize=max_pending)
-        self._inflight: "queue_mod.Queue" = queue_mod.Queue(
-            maxsize=max_pending)
+        # submitted -> staging thread -> staged -> dispatch thread ->
+        # in flight (groups) -> fetch thread; ``_room`` bounds the whole
+        self._requests: "queue_mod.Queue" = queue_mod.Queue()
+        self._staged: "queue_mod.Queue" = queue_mod.Queue()
+        self._inflight: "queue_mod.Queue" = queue_mod.Queue()
+        self._room = threading.BoundedSemaphore(max_pending)
         self._closed = threading.Event()
         self._lock = threading.Lock()
         self._served = 0
@@ -165,12 +182,14 @@ class FlowServer:
         self._counts = dict.fromkeys(COUNTERS, 0)
         self._request_ids = itertools.count()
         self._group_ids = itertools.count()
+        self._stager = threading.Thread(
+            target=self._stage_loop, daemon=True, name="flow-stage")
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, daemon=True, name="flow-dispatch")
         self._fetcher = threading.Thread(
             target=self._fetch_loop, daemon=True, name="flow-fetch")
-        self._dispatcher.start()
-        self._fetcher.start()
+        for thread in (self._stager, self._dispatcher, self._fetcher):
+            thread.start()
 
     def _replicate(self, config, bf16):
         """The batched server's replicas: one copy of the cast model (its
@@ -206,7 +225,9 @@ class FlowServer:
         """
         if self._closed.is_set():
             raise RuntimeError("server closed")
+        self._room.acquire()
         fut: Future = Future()
+        fut.add_done_callback(lambda _: self._room.release())
         self._requests.put((fut, request, time.perf_counter_ns(),
                             next(self._request_ids)))
         return fut
@@ -243,54 +264,63 @@ class FlowServer:
         (rows x, y, t, p, valid), pinned when the server runs on the card.
         ``t`` is taken as it comes (no rebase), as the JAX server packs
         it."""
-        return self._pack_group([request], 1)
+        return self._stage(request)[0][None]
 
     def _pinned(self) -> bool:
         return any(d.type == "cuda" for d in self._steps)
 
-    def _pack_group(self, requests, rows: int) -> torch.Tensor:
-        """Raw-events requests -> one [rows, 5, bucket] float32 host buffer
-        in the largest request's bucket, the rows past the requests'
-        all-zero (no valid event)."""
-        bucket = next_bucket(max(len(r["x"]) for r in requests))
-        buf = torch.empty((rows, 5, bucket), dtype=torch.float32,
-                          pin_memory=self._pinned())
-        buf[len(requests):] = 0
-        for b, r in enumerate(requests):
-            native.pack_window(r["x"], r["y"], r["t"], r["p"], bucket,
-                               t0=0.0, out=buf[b].numpy())
-        return buf
+    def _stage(self, request):
+        """One request -> (its own host slab, its batch key): raw events
+        packed into a [5, bucket] float32 slab in their count's bucket,
+        a voxel chunk copied as float32; pinned when the server runs on
+        the card. Requests coalesce into one batch iff their keys match:
+        the same kind and event bucket (voxel chunks: the same shape)."""
+        if isinstance(request, dict):
+            if self._input_bins != self._num_bins:
+                raise ValueError(
+                    f"events are voxelized into data.num_frames = "
+                    f"{self._num_bins} bins but the model takes "
+                    f"{self._input_bins}-bin chunks (data.num_chunks = "
+                    f"{self._input_bins // self._num_bins}): send voxel "
+                    "chunks")
+            bucket = next_bucket(len(request["x"]))
+            slab = torch.empty((5, bucket), dtype=torch.float32,
+                               pin_memory=self._pinned())
+            native.pack_window(request["x"], request["y"], request["t"],
+                               request["p"], bucket, t0=0.0,
+                               out=slab.numpy())
+            return slab, ("events", bucket)
+        chunk = torch.as_tensor(np.asarray(request, np.float32))
+        slab = torch.empty(chunk.shape, dtype=torch.float32,
+                           pin_memory=self._pinned())
+        slab.copy_(chunk)
+        return slab, ("voxel", tuple(chunk.shape))
 
     def stats(self) -> dict:
         """Requests served and pending, the p50 / p95 latency (ms) of the
         last 512-1024 served, and the counters since the start
         (``COUNTERS``: requests launched, groups, rows launched with their
-        padding, event slots, failed requests)."""
+        padding, event slots, failed requests, requests staged)."""
         with self._lock:
             lat = list(self._latencies)
             served = self._served
             counts = dict(self._counts)
         out = {"served": served, "pending": self._requests.qsize()
-               + self._inflight.qsize(), **counts}
+               + self._staged.qsize() + self._inflight.qsize(), **counts}
         if lat:
             out["latency_ms_p50"] = float(np.percentile(lat, 50) * 1e3)
             out["latency_ms_p95"] = float(np.percentile(lat, 95) * 1e3)
         return out
 
     def close(self):
+        """Serve what was submitted before, fail what comes after with
+        "server closed", and join the three threads."""
         self._closed.set()
         self._requests.put(None)
+        self._stager.join(timeout=30)
         self._dispatcher.join(timeout=30)
         self._inflight.put(None)
         self._fetcher.join(timeout=30)
-
-    @staticmethod
-    def _batch_key(request):
-        """Requests coalesce into one batch iff their keys match: the same
-        kind and event bucket (voxel chunks: the same shape)."""
-        if isinstance(request, dict):
-            return ("events", next_bucket(len(request["x"])))
-        return ("voxel", np.shape(request))
 
     def __enter__(self):
         return self
@@ -300,31 +330,43 @@ class FlowServer:
 
     # ------------------------------------------------------------ workers
 
+    def _stage_loop(self):
+        """Fill each request's own slab as it arrives, in arrival order,
+        and hand it to the dispatch thread; a request whose slab cannot be
+        filled fails alone."""
+        while True:
+            item = self._requests.get()
+            if item is None:
+                break
+            fut, request, t, rid = item
+            try:
+                with tracing.span("serve.stage", rid):
+                    slab, key = self._stage(request)
+            except Exception as e:  # noqa: BLE001 - delivered via future
+                if fut.set_running_or_notify_cancel():
+                    self._fail([fut], e)
+                continue
+            self._tally({"serve.staged": 1})
+            self._staged.put(Staged(fut, t, rid, slab, key))
+        self._staged.put(None)
+        self._fail_left(self._requests)
+
     def _collect_group(self, leader):
-        """The leader request plus up to batch - 1 more compatible requests
+        """The leader plus up to batch - 1 more staged requests of its key
         arriving within the batching window. Returns (group, stop) where
         ``stop`` means the close sentinel was seen."""
         group = [leader]
-        try:
-            key = self._batch_key(leader[1])
-        except Exception:  # noqa: BLE001 - a malformed request fails alone
-            return group, False
         deadline = time.perf_counter() + self._batch_window
         while len(group) < self._batch:
             timeout = deadline - time.perf_counter()
             try:
-                nxt = (self._requests.get(timeout=timeout) if timeout > 0
-                       else self._requests.get_nowait())
+                nxt = (self._staged.get(timeout=timeout) if timeout > 0
+                       else self._staged.get_nowait())
             except queue_mod.Empty:
                 break
             if nxt is None:
                 return group, True
-            try:
-                compatible = self._batch_key(nxt[1]) == key
-            except Exception as e:  # noqa: BLE001 - delivered via future
-                self._fail([nxt[0]], e)
-                continue
-            if not compatible:
+            if nxt.key != leader.key:
                 self._carry = nxt   # the next group's leader
                 break
             group.append(nxt)
@@ -335,36 +377,40 @@ class FlowServer:
         stop = False
         while not stop:
             item = self._carry if self._carry is not None \
-                else self._requests.get()
+                else self._staged.get()
             self._carry = None
             if item is None:
                 break
             group, stop = (self._collect_group(item) if self._batch > 1
                            else ([item], False))
-            live = [item for item in group
-                    if item[0].set_running_or_notify_cancel()]
+            live = [s for s in group
+                    if s.future.set_running_or_notify_cancel()]
             if not live:
                 continue
             gid = next(self._group_ids)
             if tracing.on():
                 now = time.perf_counter_ns()
-                for _, _, t, rid in live:
-                    tracing.record("serve.queue", t, now, key=rid,
-                                   parent=("serve.pack", gid))
+                for s in live:
+                    tracing.record("serve.queue", s.submitted_ns, now,
+                                   key=s.rid, parent=("serve.pack", gid))
+            futures = [s.future for s in live]
             try:
-                parts, tally = self._launch([r for _, r, _, _ in live], gid)
+                parts, tally = self._launch(live, gid)
             except Exception as e:  # noqa: BLE001 - delivered via futures
-                self._fail([f for f, _, _, _ in live], e)
+                self._fail(futures, e)
                 continue
-            self._inflight.put(([f for f, _, _, _ in live], parts,
-                                [t for _, _, t, _ in live], tally))
-        # fail what is still queued once closed
-        closed = RuntimeError("server closed")
+            self._inflight.put((futures, parts,
+                                [s.submitted_ns for s in live], tally))
         if self._carry is not None:
-            self._fail([self._carry[0]], closed)
+            self._fail([self._carry.future], RuntimeError("server closed"))
+        self._fail_left(self._staged)
+
+    def _fail_left(self, q):
+        """Fail what is still in ``q`` once closed."""
+        closed = RuntimeError("server closed")
         while True:
             try:
-                item = self._requests.get_nowait()
+                item = q.get_nowait()
             except queue_mod.Empty:
                 break
             if item is not None:
@@ -395,49 +441,37 @@ class FlowServer:
             out.setdefault(dev, []).append(i)
         return list(out.items())
 
-    def _launch(self, requests, gid: int):
-        """Upload group ``gid`` of compatible requests, padded to the batch,
-        and launch each device's rows as one forward; returns ([(finest
-        flows on the device (launched, not waited for), row indices)], the
+    def _launch(self, group, gid: int):
+        """Copy group ``gid`` of staged requests (one key) into one buffer
+        on each distinct device, padded to the batch with zero rows, and
+        launch each device's rows as one forward; returns ([(finest flows
+        on the device (launched, not waited for), row indices)], the
         group's counts)."""
-        rows = max(self._batch, len(requests))
-        events = isinstance(requests[0], dict)
-        if events and self._input_bins != self._num_bins:
-            raise ValueError(
-                f"events are voxelized into data.num_frames = "
-                f"{self._num_bins} bins but the model takes "
-                f"{self._input_bins}-bin chunks (data.num_chunks = "
-                f"{self._input_bins // self._num_bins}): send voxel "
-                "chunks")
-        with tracing.span("serve.pack", gid):
-            if events:
-                buf = self._pack_group(requests, rows)
-            else:
-                first = np.asarray(requests[0], np.float32)
-                buf = torch.zeros((rows,) + first.shape,
-                                  dtype=torch.float32,
-                                  pin_memory=self._pinned())
-                for b, r in enumerate(requests):
-                    buf[b] = torch.as_tensor(np.asarray(r, np.float32))
+        rows = max(self._batch, len(group))
+        events = group[0].key[0] == "events"
+        shape = tuple(group[0].slab.shape)
         parts = []
         for dev, idx in self._rows_by_device(rows):
-            part = buf[idx[0]:idx[-1] + 1] if idx == list(
-                range(idx[0], idx[-1] + 1)) else buf[idx]
+            filled = sum(i < len(group) for i in idx)   # a prefix of idx
+            with tracing.span("serve.pack", gid):
+                buf = torch.empty((len(idx),) + shape, dtype=torch.float32,
+                                  device=dev)
+                buf[filled:].zero_()
             with tracing.span("serve.upload", gid):
-                part = part.to(dev, non_blocking=True)
+                for row, i in enumerate(idx[:filled]):
+                    buf[row].copy_(group[i].slab, non_blocking=True)
             voxel_step, events_step = self._steps[dev]
             with tracing.span("serve.issue", gid):
                 if events:
                     flows = events_step({
-                        "x": part[:, 0], "y": part[:, 1], "t": part[:, 2],
-                        "p": part[:, 3], "valid": part[:, 4] != 0})
+                        "x": buf[:, 0], "y": buf[:, 1], "t": buf[:, 2],
+                        "p": buf[:, 3], "valid": buf[:, 4] != 0})
                 else:
-                    flows = voxel_step(part)
+                    flows = voxel_step(buf)
             parts.append((flows[-1], idx))   # finest scale
-        tally = {"serve.requests": len(requests), "serve.groups": 1,
+        tally = {"serve.requests": len(group), "serve.groups": 1,
                  "serve.rows": rows,
-                 "serve.event_slots": buf.shape[0] * buf.shape[2]
-                 if events else 0}
+                 "serve.event_slots": rows * shape[-1] if events else 0}
         return parts, tally
 
     def _fetch_loop(self):

@@ -27,19 +27,27 @@ trace's ``baseTimeNanoseconds``, in microseconds::
 The spans and counters (their readers: ``portbench/metrics/``, and
 ``FlowServer.stats()``, which keeps the serving counters at all times):
 
+- ``serve.stage``, one a request, on the server's staging thread
+  (``flow-stage``), keyed by the request's id: from taking the request off
+  the submit queue to handing it to the dispatch thread; it fills the
+  request's own host slab (the raw events' pack, or the voxel chunk's
+  copy), so the dispatch thread packs nothing;
 - ``serve.queue``, one a request: from its ``submit`` to the start of its
   group's launch, keyed by the request's id, its parent
   ``("serve.pack", group id)``;
-- ``serve.pack``, ``serve.upload``, ``serve.issue``, keyed by the group's
-  id: the host buffer's fill, its non-blocking copy to the device, the
-  call that issues the forward (upload and issue once a distinct device of
-  the group);
+- ``serve.pack``, ``serve.upload``, ``serve.issue``, on the dispatch
+  thread, keyed by the group's id, once a distinct device of the group:
+  what is left of the group's fill (its buffer's allocation on the device
+  and the padded rows' zeroing there), the staged slabs' non-blocking
+  copies into their rows (one a request), the call that issues the
+  forward;
 - ``train.step``: a train step's host issue (``make_train_step``);
 - ``train.batch``: the trainer's wait for its next host batch
   (``parallel/mesh.py:prefetch_to_device``);
 - counters ``serve.requests`` (requests launched), ``serve.groups``,
   ``serve.rows`` (rows launched, padding included), ``serve.event_slots``
-  (rows times the event bucket: K3's slots) and ``serve.failed``.
+  (rows times the event bucket: K3's slots), ``serve.failed`` and
+  ``serve.staged`` (requests staged off the dispatch thread).
 """
 
 from __future__ import annotations

@@ -110,10 +110,9 @@ def _groups(server, monkeypatch):
     seen = []
     launch = server._launch
 
-    def spy(requests, gid):
-        seen.append(["events" if isinstance(r, dict) else "voxel"
-                     for r in requests])
-        return launch(requests, gid)
+    def spy(group, gid):
+        seen.append([s.key[0] for s in group])
+        return launch(group, gid)
 
     monkeypatch.setattr(server, "_launch", spy)
     return seen

@@ -8,7 +8,8 @@ and ``chrome_events`` puts a span on the profiler trace's timeline within
 1 ms of a ``record_function`` around the same block. ``FlowServer`` counts
 requests, groups, rows (padding included), event slots and failures at
 all times (``stats()``) and into the tracer while it is on; each request's
-``serve.queue`` span ends before its group's ``serve.pack`` begins. A
+``serve.stage`` span, on the staging thread, lies inside its
+``serve.queue`` span, which ends before its group's ``serve.pack`` begins. A
 train step fed by ``prefetch_to_device`` records one ``train.step`` and
 one ``train.batch`` a step.
 """
@@ -178,10 +179,12 @@ def _events(n, seed):
 
 def test_server_counts_rows_groups_slots_and_failures(server):
     """6 voxel requests, then 4 event windows of 5000 events (one group in
-    the 8192 bucket), then one malformed request: 10 requests launched,
-    every group padded to 4 rows, 4 x 8192 slots, 1 failure; the same
-    counts in ``stats()`` and the tracer; each request's queue span ends
-    before its group's pack begins."""
+    the 8192 bucket), then one malformed request: 10 requests staged and
+    launched, every group padded to 4 rows, 4 x 8192 slots, 1 failure; the
+    same counts in ``stats()`` and the tracer; one stage span a request on
+    the staging thread, the malformed one's too, which goes no further;
+    each launched request's stage span lies inside its queue span, which
+    ends before its group's pack begins."""
     before = server.stats()
     rng = np.random.default_rng(0)
     voxels = [rng.normal(size=(10, H, W)).astype(np.float32)
@@ -191,6 +194,7 @@ def test_server_counts_rows_groups_slots_and_failures(server):
             assert f.result(timeout=300).shape == (2, H, W)
         for f in [server.submit(_events(5000, s)) for s in range(4)]:
             assert f.result(timeout=300).shape == (2, H, W)
+        sent_bad = time.perf_counter_ns()
         bad = server.submit({"x": np.zeros(3, np.float32)})
         with pytest.raises(KeyError):
             bad.result(timeout=300)
@@ -199,19 +203,30 @@ def test_server_counts_rows_groups_slots_and_failures(server):
     snap = tracing.snapshot()
     assert got == snap["counters"]
     assert got["serve.requests"] == 10 and got["serve.failed"] == 1
+    assert got["serve.staged"] == 10
     assert got["serve.rows"] == ROWS * got["serve.groups"]
     assert got["serve.event_slots"] == ROWS * 8192
-    queue = _names(snap, "serve.queue")
+    queue = {s.key: s for s in _names(snap, "serve.queue")}
+    stages = {s.key: s for s in _names(snap, "serve.stage")}
     packs = {s.key: s for s in _names(snap, "serve.pack")}
-    assert len(queue) == 11 and len({s.key for s in queue}) == 11
-    assert len(packs) == got["serve.groups"] + 1    # the failed group's too
-    for q in queue:
+    assert len(queue) == len(_names(snap, "serve.queue")) == 10
+    assert len(stages) == len(_names(snap, "serve.stage")) == 11
+    assert len(packs) == got["serve.groups"]
+    (bad_id,) = set(stages) - set(queue)     # staged, never launched
+    assert bad_id == max(stages)
+    assert sent_bad <= stages[bad_id].start_ns <= stages[bad_id].end_ns
+    stager = {s.thread for s in stages.values()}
+    assert len(stager) == 1 and not stager & {s.thread for s in
+                                              packs.values()}
+    for rid, q in queue.items():
         name, gid = q.parent
-        assert name == "serve.pack" and q.start_ns <= q.end_ns
+        assert name == "serve.pack"
+        st = stages[rid]
+        assert q.start_ns <= st.start_ns <= st.end_ns <= q.end_ns
         assert q.end_ns <= packs[gid].start_ns
     for name in ("serve.upload", "serve.issue"):
         keys = [s.key for s in _names(snap, name)]
-        assert sorted(keys) == sorted(packs)[:-1]   # launched groups only
+        assert sorted(keys) == sorted(packs)    # launched groups only
 
 
 def test_server_counts_with_the_tracer_off(server):
