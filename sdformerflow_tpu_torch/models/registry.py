@@ -1,6 +1,7 @@
 """Model registry, mirror of ``sdformerflow_tpu/models/registry.py`` (every
-name: the SNN zoo and the ANN family), plus the seeded randomization the
-port's checks run on (the repo has no trained checkpoint).
+name: the SNN zoo and the ANN family), plus ``ERAFT`` (``models/eraft.py``,
+which JAX lacks) and the seeded randomization the port's checks run on
+(the repo has no trained checkpoint).
 
 ``input_bins`` (``training.config.chunk_bins``: ``data.num_frames *
 data.num_chunks``) is the bin count of the chunks an STTFlowNet will take;
@@ -123,6 +124,18 @@ def _mru(model_cfg, swin_cfg, spiking_cfg):
         norm=model_cfg.get("norm"),
         use_upsample_conv=model_cfg.get("use_upsample_conv", True),
         final_activation=model_cfg.get("final_activation"))
+
+
+@register_model("ERAFT")
+def _eraft(model_cfg, swin_cfg, spiking_cfg):
+    from .eraft import ERAFT
+    bins = int(model_cfg.get("num_bins", 15))
+    if model_cfg.get("input_bins") not in (None, 2 * bins):
+        raise ValueError(
+            f"ERAFT takes two windows of model.num_bins = {bins} bins "
+            f"(data.num_frames = {bins}, data.num_chunks = 2), not "
+            f"{model_cfg['input_bins']}-bin chunks")
+    return ERAFT(num_bins=bins, iters=int(model_cfg.get("iters", 12)))
 
 
 @torch.no_grad()

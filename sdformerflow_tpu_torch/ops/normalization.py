@@ -86,16 +86,39 @@ def spike_binarize(x: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(x < threshold, 0.0, x)
 
 
+def _per_window(norm, chunk: torch.Tensor, windows: int, group,
+                per_row: bool) -> torch.Tensor:
+    """``norm`` applied to each of ``windows`` equal groups of the bin
+    axis (axis 1) on its own: over each row's group with ``per_row``, else
+    over the group's entries in every row (and rank)."""
+    if windows == 1:
+        return norm(chunk, group=group, per_row=per_row)
+    B, C = chunk.shape[:2]
+    parts = chunk.reshape(B, windows, C // windows, *chunk.shape[2:])
+    if per_row:
+        out = norm(parts.flatten(0, 1), group=group, per_row=True)
+    else:
+        out = torch.stack([norm(parts[:, w], group=group)
+                           for w in range(windows)], dim=1)
+    return out.reshape(chunk.shape)
+
+
 def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
                  polarity: bool = True, norm_input="minmax",
                  spike_th: float | None = None, group=None,
-                 per_row: bool = False) -> torch.Tensor:
+                 per_row: bool = False, windows: int = 1) -> torch.Tensor:
     """polarity split -> nonzero normalize -> optional binarize.
 
     ``norm_input`` ``"minmax"`` or ``"std"`` normalizes, over the whole
     batch (every rank's rows with a data-parallel ``group``; each row's with
     ``per_row``); any other value (``None``, ``True`` as the STT configs
     set it, ...) leaves the chunk as it is, as JAX's ``encode_input`` does.
+    With ``windows`` > 1 the bins are that many consecutive windows (the
+    model's ``event_windows``), each normalized on its own, as E-RAFT's
+    ``VoxelGrid(normalize=True)`` normalizes each window's grid. Where a
+    window's nonzero entries have no spread (std 0, or a single entry),
+    E-RAFT subtracts their mean; ``normalize_nonzero_std`` leaves the
+    window as it is.
 
     ``chunk``: [B, bins, H, W] signed voxels (``polarity=True``) or
     [B, bins, 2, H, W]. Returns [B, bins, 2, H, W] (with ``polarity``
@@ -106,9 +129,11 @@ def encode_input(chunk: torch.Tensor, *, encoding: str = "voxel",
     if encoding == "voxel" and polarity:
         chunk = polarity_split(chunk)
     if norm_input == "minmax":
-        chunk = normalize_nonzero_minmax(chunk, group=group, per_row=per_row)
+        chunk = _per_window(normalize_nonzero_minmax, chunk, windows, group,
+                            per_row)
     elif norm_input == "std":
-        chunk = normalize_nonzero_std(chunk, group=group, per_row=per_row)
+        chunk = _per_window(normalize_nonzero_std, chunk, windows, group,
+                            per_row)
     if spike_th is not None:
         chunk = spike_binarize(chunk, spike_th)
     return chunk

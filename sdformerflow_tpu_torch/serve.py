@@ -17,7 +17,10 @@ model (one batch of N rows on the CPU).
 
 Protocol (numpy .npz bodies):
   POST /flow   body npz with either ``chunk`` ([bins, H, W] voxels at crop
-               size) or ``x,y,t,p`` ([N] raw events at sensor resolution)
+               size) or ``x,y,t,p`` ([N] raw events at sensor resolution;
+               for a model of two event windows, E-RAFT's
+               ``configs/dsec_eraft.yaml``: ``old_x, ..., old_p`` and
+               ``new_x, ..., new_p``, the two consecutive windows)
                -> npz response with ``flow`` ([2, H, W] float32); 400 with
                the error's text when the body or the request is bad
   GET  /stats  -> JSON {served, pending, latency_ms_p50, latency_ms_p95,
@@ -81,6 +84,9 @@ def build_handler(server):
                 data = np.load(io.BytesIO(body), allow_pickle=False)
                 if "chunk" in data:
                     request = data["chunk"]
+                elif "old_x" in data:
+                    request = {w: {k: data[f"{w}_{k}"] for k in "xytp"}
+                               for w in ("old", "new")}
                 else:
                     request = {k: data[k] for k in ("x", "y", "t", "p")}
                 flow = server.infer(request)

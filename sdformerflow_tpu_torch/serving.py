@@ -33,6 +33,17 @@ STT config). Events are voxelized into ``data.num_frames`` bins, as in
 JAX, so where the model takes another count (the STT configs' two chunks)
 an events request fails with a ``ValueError`` that says so.
 
+A model whose input is consecutive event windows (its ``event_windows``:
+E-RAFT's two, ``models/eraft.py``) takes an events request as those
+windows, ``{"old": {x, y, t, p}, "new": {x, y, t, p}}``: both are packed
+into the request's own slab, one after the other, each padded to its own
+bucket; K3 runs once a window and row, each window over its own time span
+into ``data.num_frames`` bins, and each window's grid is normalized on its
+own (``make_eval_step`` reads the model's ``event_windows``). A one-window
+request to such a server, or a two-window request to any other, fails with
+a ``ValueError`` that names the form the server takes. Voxel requests take
+the whole chunk, ``[data.num_frames * data.num_chunks, H, W]``.
+
 Batching over devices (JAX ``mesh=``, ``serving.py:243-352``): with
 ``devices=[d0, d1, ...]`` (``parallel/mesh.py:make_mesh``; a device may
 appear more than once) the dispatch thread coalesces up to ``len(devices)``
@@ -97,6 +108,13 @@ def next_bucket(n: int, minimum: int = 4096) -> int:
     return max(minimum, 1 << max(int(n) - 1, 1).bit_length())
 
 
+def _rows(buf: torch.Tensor) -> dict:
+    """A [rows, 5, bucket] buffer of packed windows -> the events step's
+    x / y / t / p / valid rows."""
+    return {"x": buf[:, 0], "y": buf[:, 1], "t": buf[:, 2], "p": buf[:, 3],
+            "valid": buf[:, 4] != 0}
+
+
 class FlowServer:
     """Inference engine over one model.
 
@@ -147,6 +165,7 @@ class FlowServer:
         else:
             model = model.to(self.device).eval()
         self._input_bins = chunk_bins(config)
+        self._windows = getattr(model, "event_windows", 1)
         self._num_bins = config["data"].get("num_frames", 10)
         self._resolution = tuple(config["loader"].get("resolution",
                                                       (480, 640)))
@@ -221,7 +240,11 @@ class FlowServer:
         [bins, 2, h, w] numpy array, already at crop size) or a dict with
         keys x/y/t/p ([N] arrays of raw events at sensor resolution:
         uint16/uint16/int64/uint8 as DSEC stores them, or any numeric
-        dtype), voxelized and center-cropped on the device.
+        dtype), voxelized and center-cropped on the device. A model of two
+        event windows (E-RAFT) takes ``{"old": {x, y, t, p}, "new": {x,
+        y, t, p}}``: the older window and the one after it, each
+        voxelized over its own time span and normalized on its own;
+        requests batch together when both windows' buckets match.
         """
         if self._closed.is_set():
             raise RuntimeError("server closed")
@@ -254,16 +277,19 @@ class FlowServer:
                 buckets.insert(-1, b)
                 b *= 2
         for bucket in buckets:
-            self.infer({"x": np.zeros(bucket, np.float32),
-                        "y": np.zeros(bucket, np.float32),
-                        "t": np.linspace(0, 1, bucket, dtype=np.float32),
-                        "p": np.ones(bucket, np.float32)})
+            window = {"x": np.zeros(bucket, np.float32),
+                      "y": np.zeros(bucket, np.float32),
+                      "t": np.linspace(0, 1, bucket, dtype=np.float32),
+                      "p": np.ones(bucket, np.float32)}
+            self.infer(window if self._windows == 1
+                       else {"old": window, "new": window})
 
     def pack_events(self, request: dict) -> torch.Tensor:
         """One raw-events request -> its [1, 5, bucket] float32 host buffer
-        (rows x, y, t, p, valid), pinned when the server runs on the card.
-        ``t`` is taken as it comes (no rebase), as the JAX server packs
-        it."""
+        (rows x, y, t, p, valid), pinned when the server runs on the card
+        (a two-window request: its flat slab, [1, 5 * (bucket_old +
+        bucket_new)]). ``t`` is taken as it comes (no rebase), as the JAX
+        server packs it."""
         return self._stage(request)[0][None]
 
     def _pinned(self) -> bool:
@@ -271,11 +297,22 @@ class FlowServer:
 
     def _stage(self, request):
         """One request -> (its own host slab, its batch key): raw events
-        packed into a [5, bucket] float32 slab in their count's bucket,
-        a voxel chunk copied as float32; pinned when the server runs on
-        the card. Requests coalesce into one batch iff their keys match:
-        the same kind and event bucket (voxel chunks: the same shape)."""
+        packed into a [5, bucket] float32 slab in their count's bucket (two
+        windows: each window's [5, bucket] one after the other in one flat
+        slab), a voxel chunk copied as float32; pinned when the server runs
+        on the card. Requests coalesce into one batch iff their keys match:
+        the same kind and event buckets (voxel chunks: the same shape)."""
         if isinstance(request, dict):
+            pair = "old" in request or "new" in request
+            if pair != (self._windows == 2):
+                raise ValueError(
+                    "this server takes events as "
+                    + ('{"old": {x, y, t, p}, "new": {x, y, t, p}}: two '
+                       "consecutive windows, older first"
+                       if self._windows == 2 else
+                       "one window {x, y, t, p}, not a window pair"))
+            if pair:
+                return self._stage_pair(request["old"], request["new"])
             if self._input_bins != self._num_bins:
                 raise ValueError(
                     f"events are voxelized into data.num_frames = "
@@ -295,6 +332,20 @@ class FlowServer:
                            pin_memory=self._pinned())
         slab.copy_(chunk)
         return slab, ("voxel", tuple(chunk.shape))
+
+    def _stage_pair(self, old: dict, new: dict):
+        """Two windows -> one flat slab, each window's [5, bucket] in turn
+        in its own bucket; key ("pair", (bucket_old, bucket_new))."""
+        buckets = tuple(next_bucket(len(w["x"])) for w in (old, new))
+        slab = torch.empty(5 * sum(buckets), dtype=torch.float32,
+                           pin_memory=self._pinned())
+        at = 0
+        for w, bucket in zip((old, new), buckets):
+            native.pack_window(w["x"], w["y"], w["t"], w["p"], bucket,
+                               t0=0.0, out=slab[at:at + 5 * bucket]
+                               .view(5, bucket).numpy())
+            at += 5 * bucket
+        return slab, ("pair", buckets)
 
     def stats(self) -> dict:
         """Requests served and pending, the p50 / p95 latency (ms) of the
@@ -448,7 +499,7 @@ class FlowServer:
         on the device (launched, not waited for), row indices)], the
         group's counts)."""
         rows = max(self._batch, len(group))
-        events = group[0].key[0] == "events"
+        kind = group[0].key[0]
         shape = tuple(group[0].slab.shape)
         parts = []
         for dev, idx in self._rows_by_device(rows):
@@ -462,16 +513,19 @@ class FlowServer:
                     buf[row].copy_(group[i].slab, non_blocking=True)
             voxel_step, events_step = self._steps[dev]
             with tracing.span("serve.issue", gid):
-                if events:
-                    flows = events_step({
-                        "x": buf[:, 0], "y": buf[:, 1], "t": buf[:, 2],
-                        "p": buf[:, 3], "valid": buf[:, 4] != 0})
+                if kind == "events":
+                    flows = events_step(_rows(buf))
+                elif kind == "pair":
+                    at = 5 * group[0].key[1][0]
+                    flows = events_step({"windows": [
+                        _rows(buf[:, :at].view(len(idx), 5, -1)),
+                        _rows(buf[:, at:].view(len(idx), 5, -1))]})
                 else:
                     flows = voxel_step(buf)
             parts.append((flows[-1], idx))   # finest scale
+        slots = {"events": shape[-1], "pair": shape[-1] // 5}.get(kind, 0)
         tally = {"serve.requests": len(group), "serve.groups": 1,
-                 "serve.rows": rows,
-                 "serve.event_slots": rows * shape[-1] if events else 0}
+                 "serve.rows": rows, "serve.event_slots": rows * slots}
         return parts, tally
 
     def _fetch_loop(self):

@@ -78,12 +78,18 @@ def _set_mode(model: nn.Module, *, train: bool, update_bn_stats: bool = True,
 
 
 def _model_input(chunk, batch_crop, voxelize, crop, *, encoding, polarity,
-                 norm_input, spike_th, group=None, per_row=False):
-    """Voxelize raw events (``voxelize``) and crop, then encode (over the
-    rows of every rank of ``group``; each row on its own with
-    ``per_row``): the model's [B, bins, 2, H, W] input."""
+                 norm_input, spike_th, group=None, per_row=False, windows=1):
+    """Voxelize raw events (``voxelize``; a dict ``{"windows": [events,
+    ...]}`` each window over its own time span, their bins concatenated)
+    and crop, then encode (over the rows of every rank of ``group``; each
+    row on its own with ``per_row``; each of ``windows`` windows on its
+    own): the model's [B, bins, 2, H, W] input."""
     if voxelize is not None and isinstance(chunk, dict):
-        chunk = voxelize_batch(chunk, **voxelize)
+        if "windows" in chunk:
+            chunk = torch.cat([voxelize_batch(w, **voxelize)
+                               for w in chunk["windows"]], dim=1)
+        else:
+            chunk = voxelize_batch(chunk, **voxelize)
         if batch_crop is not None:
             chunk = center_crop(chunk, batch_crop)
     if crop is not None:
@@ -91,7 +97,7 @@ def _model_input(chunk, batch_crop, voxelize, crop, *, encoding, polarity,
     if chunk.dim() == 4 or encoding == "voxel":
         return encode_input(chunk, encoding=encoding, polarity=polarity,
                             norm_input=norm_input, spike_th=spike_th,
-                            group=group, per_row=per_row)
+                            group=group, per_row=per_row, windows=windows)
     return chunk
 
 
@@ -197,7 +203,8 @@ class EvalStep(nn.Module):
         self.model = model
         self.input_kw = dict(encoding=encoding, polarity=polarity,
                              norm_input=norm_input, spike_th=spike_th,
-                             group=group, per_row=per_row)
+                             group=group, per_row=per_row,
+                             windows=getattr(model, "event_windows", 1))
         self.compute_dtype, self.voxelize, self.crop = (compute_dtype,
                                                         voxelize, crop)
         self.fused_embed, self.num_steps = fused_embed, num_steps
@@ -231,9 +238,15 @@ def make_eval_step(model: nn.Module, *, encoding="voxel", polarity=True,
 
     With ``voxelize=dict(num_bins, height, width[, presorted])`` the step
     also takes a dict of padded event buffers (x/y/t/p/valid, [B, N]) and
-    voxelizes them on their device (:func:`voxelize_batch`). With
-    ``crop=(h, w)`` every chunk is center-cropped before encoding: raw
-    events arrive at sensor resolution, the model runs on the crop.
+    voxelizes them on their device (:func:`voxelize_batch`); a dict
+    ``{"windows": [events, ...]}`` holds consecutive windows (E-RAFT's two),
+    each voxelized over its own time span into ``num_bins`` bins, the
+    windows' bins concatenated in order. With ``crop=(h, w)`` every chunk
+    is center-cropped before encoding: raw events arrive at sensor
+    resolution, the model runs on the crop (``crop=None``: at sensor
+    resolution). A model of consecutive event windows (its
+    ``event_windows``, E-RAFT's 2) has each window of the chunk's bins
+    normalized on its own (``ops/normalization.py:encode_input``).
 
     ``use_batch_stats=True`` validates as the reference does at batch 1:
     train mode (batch statistics, drop-path drawn from a generator seeded 0

@@ -44,10 +44,24 @@ The spans and counters (their readers: ``portbench/metrics/``, and
 - ``train.step``: a train step's host issue (``make_train_step``);
 - ``train.batch``: the trainer's wait for its next host batch
   (``parallel/mesh.py:prefetch_to_device``);
+- ``eraft.corr``, once an E-RAFT forward (``models/eraft.py``): the host's
+  issue of the correlation volume and its pyramid (read by
+  ``portbench/metrics/corr_volume_roofline_pct.py``, which takes the
+  kernels launched inside it, and by ``eraft_update_issue_ms`` to count the
+  forwards);
+- ``eraft.update``, one an E-RAFT iteration, keyed by the iteration: its
+  lookup and update block, as issued (``eraft_update_issue_ms``: their sum
+  a forward); inside it ``eraft.lookup``, the lookup alone
+  (``corr_lookup_roofline_pct`` takes the kernels launched inside it);
 - counters ``serve.requests`` (requests launched), ``serve.groups``,
   ``serve.rows`` (rows launched, padding included), ``serve.event_slots``
-  (rows times the event bucket: K3's slots), ``serve.failed`` and
-  ``serve.staged`` (requests staged off the dispatch thread).
+  (rows times the event bucket, summed over a request's windows: K3's
+  slots), ``serve.failed`` and ``serve.staged`` (requests staged off the
+  dispatch thread); ``eraft.volumes`` (rows whose correlation volume was
+  built, padding included: ``corr_volume_roofline_pct``'s work) and
+  ``eraft.lookups`` (rows times iterations: ``corr_lookup_roofline_pct``'s
+  work). ``FlowServer.stats()`` keeps the ``serve.*`` counters at all
+  times.
 """
 
 from __future__ import annotations
